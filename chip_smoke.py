@@ -2,17 +2,31 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from csrc/, holds each against its
-plain PyTorch version at the main path's shapes (and times kernel, plain
-version, one library call and the byte bound), then drives the port's pose
-path the way the Predictor does -- StubDetector -> MultiPersonTracker ->
-target selection -> PoseEstimator.run_from_frames (64-frame chunks,
-ResNet-50 + 3-step IEF at full width, seeded random weights, synthetic SMPL)
--> REBA/RULA scorers -> stats and result txts -- once strict (f32) and once
-fast (bf16), with every kernel launch counter set to 0 just before each run
-and read just after. The card's strict output is held against the port's
-CPU path on a small input. The Predictor's own video decode needs opencv,
-which the card's machine need not have, so frames are made with numpy.
+Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
+started together), holds each against its plain PyTorch version at the main
+paths' shapes (and times kernel, plain version, one library call and the
+bound), then drives the port's main paths, each with every kernel launch
+counter set to 0 just before it and read just after:
+
+* the pose path the way the Predictor does -- StubDetector ->
+  MultiPersonTracker -> target selection -> PoseEstimator.run_from_frames
+  (64-frame chunks, ResNet-50 + 3-step IEF at full width, seeded random
+  weights, synthetic SMPL) -> REBA/RULA scorers -> stats and result txts --
+  once strict (f32) and once fast (bf16); the card's strict output is held
+  against the port's CPU path on a small input;
+* the detector path: YoloDetector (YOLOv3, all 75 convs at full width, the
+  seed-0 init BN-folded, the Predictor's square 416 canvas, 64-frame
+  batches) under MultiPersonTracker; its tower and kept boxes are held
+  against the port's CPU path on 2 frames;
+* the full-frame step (throughput.make_full_frame_step) over 128 frames in
+  64-frame chunks: strict f32 at strides 1/1 and fast bf16 at strides 8/8,
+  both through the fused letterbox + crop kernel, each held against the
+  unfused step;
+* the --debug_frame mesh: Predictor._save_debug_mesh (LBS on the card).
+
+The Predictor's own video decode needs opencv and its plots matplotlib,
+which the card's machine need not have, so frames are made with numpy and
+no figure is drawn.
 
 Prints one line per phase, then a JSON line with every kernel's numbers,
 the nvidia-smi name/power-limit line, and as the last line
@@ -61,6 +75,36 @@ def time_ms(fn, reps: int = 20, per_rep: int = 10, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def elapsed_ms(fn, device) -> float:
+    """Milliseconds of one fn() call: CUDA-event time on the card (the
+    stream's time from the first launch to the last, idle gaps included),
+    the host clock elsewhere."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def reset_launch_counts() -> None:
+    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda, fused_letterbox_crop_cuda
+    from poserisk_release_tpu_torch.ops.skin import skin_vertices_cuda
+
+    crop_batch_cuda.launches = fused_letterbox_crop_cuda.launches = 0
+    skin_vertices_cuda.launches = 0
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -99,6 +143,21 @@ def crop_bytes(bboxes: np.ndarray, H: int, W: int, out_bytes: int) -> int:
     return total
 
 
+def check_inputs(device, seed):
+    """CHUNK seeded noise frames of FRAME_HW and their boxes: the edge boxes
+    (centred, small off-centre, straddling the right/bottom border, partly
+    outside) then random ones, some reaching past the frame."""
+    rng = np.random.RandomState(seed)
+    H, W = FRAME_HW
+    frames = torch.as_tensor(rng.randint(0, 256, (CHUNK, H, W, 3)).astype(np.uint8), device=device)
+    edge = np.array([[400.0, 225.0, 220.0, 220.0], [100.0, 80.0, 60.0, 120.0],
+                     [780.0, 440.0, 100.0, 50.0], [-20.0, 10.0, 80.0, 80.0]], np.float32)
+    side = rng.uniform(40, 520, CHUNK - 4)
+    rand = np.stack([rng.uniform(-60, W + 60, CHUNK - 4), rng.uniform(-60, H + 60, CHUNK - 4),
+                     side, side], axis=1).astype(np.float32)
+    return frames, torch.as_tensor(np.concatenate([edge, rand]), device=device)
+
+
 def check_crop_kernel(device, main_frames, main_bboxes) -> dict:
     """K1 against its plain version on the card, then timings at the main
     path's shapes (one 64-frame chunk of tracked 450x800 frames)."""
@@ -107,15 +166,8 @@ def check_crop_kernel(device, main_frames, main_bboxes) -> dict:
     from poserisk_release_tpu_torch.ops.crop import crop_batch_plain
     from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
 
-    rng = np.random.RandomState(0)
+    frames, bboxes = check_inputs(device, seed=0)
     H, W = FRAME_HW
-    frames = torch.as_tensor(rng.randint(0, 256, (CHUNK, H, W, 3)).astype(np.uint8), device=device)
-    edge = np.array([[400.0, 225.0, 220.0, 220.0], [100.0, 80.0, 60.0, 120.0],
-                     [780.0, 440.0, 100.0, 50.0], [-20.0, 10.0, 80.0, 80.0]], np.float32)
-    side = rng.uniform(40, 520, CHUNK - 4)
-    rand = np.stack([rng.uniform(-60, W + 60, CHUNK - 4), rng.uniform(-60, H + 60, CHUNK - 4),
-                     side, side], axis=1).astype(np.float32)
-    bboxes = torch.as_tensor(np.concatenate([edge, rand]), device=device)
 
     got32 = crop_batch_cuda(frames, bboxes)
     got16 = crop_batch_cuda(frames, bboxes, out_dtype=torch.bfloat16)
@@ -171,7 +223,8 @@ def check_crop_kernel(device, main_frames, main_bboxes) -> dict:
 
 
 def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None):
-    """Drive the pose path once; returns (launches, result dict)."""
+    """Drive the pose path once; returns (K1 launches, axis-angles, tracked
+    frame ids)."""
     from poserisk_release_tpu_torch.models.detector import StubDetector
     from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
     from poserisk_release_tpu_torch.outputs.stats import post_process_scores, write_result_txt
@@ -183,9 +236,9 @@ def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None):
     est = PoseEstimator(cfg, smpl, variables=variables, fast=fast, device=device)
     est.run_from_frames(frames, np.arange(CHUNK), np.tile([[400.0, 225.0, 400.0, 400.0]],
                                                            (CHUNK, 1)))  # warm-up
-    torch.cuda.synchronize()
+    sync(device)
 
-    crop_batch_cuda.launches = 0
+    reset_launch_counts()
     t = {}
     t0 = time.perf_counter()
     tracks = MultiPersonTracker(StubDetector()).track_windows(
@@ -248,7 +301,365 @@ def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None):
     print(json.dumps(line))
     if launches <= 0:
         raise AssertionError("the main path launched no crop kernel")
+    return launches, aa, track_frames
+
+
+STRIDE_TRIPLES = [(1, 1, 1), (2, 2, 1), (4, 1, 1), (2, 1, 2), (1, 4, 1), (1, 1, 8), (1, 2, 4),
+                  (2, 4, 1)]  # (frame, det, crop) strides; tests/test_pose_stride.py's and 1/1/1
+
+
+def _taps_read(i0, i1, w0, w1) -> set:
+    """The source indices one axis's nonzero taps read."""
+    return set(np.asarray(i0)[np.asarray(w0) != 0].tolist()) | set(
+        np.asarray(i1)[np.asarray(w1) != 0].tolist())
+
+
+def letterbox_crop_bytes(bboxes: np.ndarray, H: int, W: int, out_bytes: int) -> int:
+    """Bytes K2 must move at strides 1/1 on the rect canvas: each output
+    written once, and per frame each source pixel that a nonzero letterbox
+    or crop tap reads, read once (the union of the two windows)."""
+    from poserisk_release_tpu_torch.ops.crop import axis_taps, crop_coords, letterbox_taps
+
+    rows, cols, CH, CW = letterbox_taps(H, W, 416, True)
+    lr, lc = _taps_read(*rows), _taps_read(*cols)
+    ys, xs = crop_coords(torch.as_tensor(bboxes, dtype=torch.float32), 1.2, OUT)
+    total = bboxes.shape[0] * (CH * CW + OUT * OUT) * 3 * out_bytes
+    for b in range(bboxes.shape[0]):
+        cr, cc = _taps_read(*axis_taps(ys[b], H)), _taps_read(*axis_taps(xs[b], W))
+        total += (len(lr) * len(lc) + len(cr) * len(cc) - len(lr & cr) * len(lc & cc)) * 3
+    return total
+
+
+def check_letterbox_crop_kernel(device, main_frames, main_bboxes) -> dict:
+    """K2 against its plain version on the card at every stride triple and
+    in both letterbox-only modes, then timings at the full-frame step's
+    strict shapes (one 64-frame chunk of tracked 450x800 frames, strides 1/1,
+    rect canvas, f32)."""
+    import torch.nn.functional as F
+
+    from poserisk_release_tpu_torch.ops.crop import GRAY, canvas_geometry, crop_coords, letterbox_plain
+    from poserisk_release_tpu_torch.ops.resample import (
+        fused_letterbox_crop_cuda,
+        fused_letterbox_crop_plain,
+    )
+
+    frames, bboxes = check_inputs(device, seed=1)
+    H, W = FRAME_HW
+    errs = {}
+    for g, d, p in STRIDE_TRIPLES:
+        kw = dict(det_stride=d, crop_stride=p, frame_stride=g)
+        want = fused_letterbox_crop_plain(frames, bboxes, **kw)
+        got32 = fused_letterbox_crop_cuda(frames, bboxes, **kw)
+        got16 = fused_letterbox_crop_cuda(frames, bboxes, out_dtype=torch.bfloat16, **kw)
+        sync(device)
+        errs[f"{g}/{d}/{p}"] = (
+            max(float((a - b).abs().max()) for a, b in zip(got32, want)),
+            max(float((a.float() - b).abs().max()) for a, b in zip(got16, want)))
+    for rect in (False, True):
+        want = letterbox_plain(frames, 416, rect=rect)
+        got32 = fused_letterbox_crop_cuda(frames, None, rect=rect)[0]
+        got16 = fused_letterbox_crop_cuda(frames, None, rect=rect, out_dtype=torch.bfloat16)[0]
+        sync(device)
+        errs["rect" if rect else "square"] = (float((got32 - want).abs().max()),
+                                              float((got16.float() - want).abs().max()))
+    err32 = max(e[0] for e in errs.values())
+    err16 = max(e[1] for e in errs.values())
+    print(json.dumps({"phase": "letterbox_crop_check", "frames": list(frames.shape),
+                      "f32_bf16_max_abs_err": errs}))
+    if not err32 <= 1e-5:
+        raise AssertionError(f"letterbox+crop kernel f32 disagrees with its plain version: {errs}")
+    if not err16 <= 4.0 / 255.0:
+        raise AssertionError(f"letterbox+crop kernel bf16 off by more than 4/255: {errs}")
+
+    f = torch.as_tensor(main_frames[:CHUNK], device=device)
+    bb = torch.as_tensor(main_bboxes[:CHUNK], dtype=torch.float32, device=device).contiguous()
+    ms = time_ms(lambda: fused_letterbox_crop_cuda(f, bb))
+    ms16 = time_ms(lambda: fused_letterbox_crop_cuda(f, bb, out_dtype=torch.bfloat16))
+    plain_ms = time_ms(lambda: fused_letterbox_crop_plain(f, bb), reps=5, per_rep=2)
+    # Yardstick only (the port never calls it): bilinear F.interpolate with
+    # cv2's half-pixel rule (align_corners=False) into the content band of a
+    # 128/255 canvas, plus K1's grid_sample crop, on frames already converted
+    # to float NCHW.
+    CH, CW, new_w, new_h, pad_x, pad_y = canvas_geometry(H, W, 416, True)
+    ys, xs = crop_coords(bb, 1.2, OUT)
+    grid = torch.stack([
+        (2.0 * xs / (W - 1) - 1.0)[:, None, :].expand(-1, OUT, -1),
+        (2.0 * ys / (H - 1) - 1.0)[:, :, None].expand(-1, -1, OUT)], dim=-1)
+    f_nchw = f.permute(0, 3, 1, 2).float() / 255.0
+
+    def library():
+        canvas = torch.full((CHUNK, 3, CH, CW), GRAY, device=device)
+        canvas[:, :, pad_y:pad_y + new_h, pad_x:pad_x + new_w] = F.interpolate(
+            f_nchw, size=(new_h, new_w), mode="bilinear", align_corners=False)
+        return canvas, F.grid_sample(f_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                     align_corners=True)
+
+    lib_err = max(float((a.permute(0, 2, 3, 1) - b).abs().max())
+                  for a, b in zip(library(), fused_letterbox_crop_cuda(f, bb)))
+    if not lib_err <= 1e-3:
+        raise AssertionError(f"the library yardstick computes another function: {lib_err}")
+    library_ms = time_ms(library)
+    n_bytes = letterbox_crop_bytes(main_bboxes[:CHUNK], H, W, 4)
+    n_flops = CHUNK * (CH * CW + OUT * OUT) * 3 * 10
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
+    row = {"name": "fused_letterbox_crop_cuda", "route": "cuda",
+           "source": "poserisk_release_tpu_torch/csrc/letterbox_crop.cu",
+           "replaces": "poserisk_release_tpu/ops/resample_pallas.py:133",
+           "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+    print(json.dumps({"phase": "letterbox_crop_timing", "shape": [CHUNK, H, W, 3],
+                      "canvas": [CH, CW], "bytes": n_bytes, "ms_f32": ms, "ms_bf16": ms16,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "library_max_abs_err": lib_err, "bound_ms": row["bound_ms"]}))
+    return row
+
+
+class CountingDetector:
+    """Wraps a detector and keeps the number of detections of every frame."""
+
+    def __init__(self, detector):
+        self.detector, self.counts = detector, []
+
+    def __call__(self, frames_rgb):
+        out = self.detector(frames_rgb)
+        self.counts.extend(len(d) for d in out)
+        return out
+
+
+def detector_path(device, frames):
+    """The YOLOv3 detector at full width on the Predictor's square 416
+    canvas: its tower and kept boxes against the port's CPU path on 2
+    frames, then the detector path under MultiPersonTracker over all
+    frames. Returns (K2 launches, the BN-folded weights)."""
+    from poserisk_release_tpu_torch.models.detector import (
+        YoloDetector,
+        fold_bn_params,
+        init_yolo_params,
+        yolo_forward,
+    )
+    from poserisk_release_tpu_torch.ops.resample import fused_letterbox_crop_cuda
+    from poserisk_release_tpu_torch.tracking.mpt import MultiPersonTracker
+
+    sd = fold_bn_params(init_yolo_params(0))
+    det = YoloDetector(params=sd, device=device, batch_size=CHUNK)
+    cpu_det = YoloDetector(params=sd, device="cpu", batch_size=2)
+    two = frames[:2]
+    # Strict f32 on both sides (TF32 off on the card): the conv tower's sums
+    # run in another order (cuDNN's algorithms against the CPU's), so the
+    # raw head logits are held to 1e-3 of each head's largest magnitude; the
+    # same comparison between the port and the JAX package on the CPU
+    # measures about 1e-5 (tests/test_torch_detector.py).
+    with torch.no_grad():
+        heads = [h for h, _ in det.model.heads(
+            det.letterbox(torch.as_tensor(two, device=device)).permute(0, 3, 1, 2))]
+        ref = [h for h, _ in cpu_det.model.heads(
+            cpu_det.letterbox(torch.as_tensor(two)).permute(0, 3, 1, 2))]
+    head_rel = max(float((h.cpu() - r).abs().max() / r.abs().max()) for h, r in zip(heads, ref))
+    got, want = det(two), cpu_det(two)
+    if [g.shape for g in got] != [w.shape for w in want]:
+        raise AssertionError(f"kept boxes differ in number: {got} vs {want}")
+    box_err = max([float(np.abs(g - w).max()) for g, w in zip(got, want) if g.size] + [0.0])
+    if not (head_rel <= 1e-3 and box_err <= 0.5):
+        raise AssertionError(f"detector card vs CPU: heads {head_rel}, boxes {box_err} px")
+
+    det(frames[:CHUNK])  # warm-up
+    sync(device)
+    counting = CountingDetector(det)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tracks = MultiPersonTracker(counting).track_windows(
+        (s, frames[s:s + CHUNK]) for s in range(0, len(frames), CHUNK))
+    seconds = time.perf_counter() - t0
+    launches = fused_letterbox_crop_cuda.launches
+    letter = det.letterbox(torch.as_tensor(frames[:CHUNK], device=device))
+    yolo_ms = time_ms(lambda: yolo_forward(det.model, letter), reps=5, per_rep=1, warmup=2)
+    counts = np.asarray(counting.counts)
+    print(json.dumps({
+        "phase": "detector_path", "frames": len(frames), "canvas": list(letter.shape[1:3]),
+        "k2_launches": launches, "track_s": seconds, "frames_per_s": len(frames) / seconds,
+        "yolo_chunk_ms": yolo_ms, "detections_per_frame": {
+            "mean": float(counts.mean()), "min": int(counts.min()), "max": int(counts.max())},
+        "tracks": len(tracks), "cpu_ref_frames": 2, "head_max_rel_err": head_rel,
+        "box_max_abs_err_px": box_err,
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
+    if len(counts) != len(frames):
+        raise AssertionError(f"detections for {len(counts)} of {len(frames)} frames")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the strict detector left TF32 on")
+    if launches <= 0:
+        raise AssertionError("the detector path launched no letterbox kernel")
+    return launches, sd
+
+
+def full_frame(device, frames, bboxes, yolo_sd, variables, smpl, cfg, fast: bool) -> int:
+    """make_full_frame_step over all frames in CHUNK-frame chunks through
+    K2 (fused), held against the unfused step; strict f32 at strides 1/1 or
+    fast bf16 at 8/8. Returns K2's launches."""
+    from poserisk_release_tpu_torch.models.detector import YoloV3, yolo_forward
+    from poserisk_release_tpu_torch.ops.resample import fused_letterbox_crop, fused_letterbox_crop_cuda
+    from poserisk_release_tpu_torch.pipeline import PoseEstimator
+    from poserisk_release_tpu_torch.scoring.reba import reba_frame_scores
+    from poserisk_release_tpu_torch.scoring.rula import rula_frame_scores
+    from poserisk_release_tpu_torch.throughput import (
+        default_packed_infos,
+        make_full_frame_step,
+        make_pose_core,
+    )
+
+    dtype, stride = (torch.bfloat16, 8) if fast else (torch.float32, 1)
+    est = PoseEstimator(cfg, smpl, variables=variables, fast=fast, device=device)
+    yolo = YoloV3.from_state_dict(yolo_sd).to(device, dtype, memory_format=torch.channels_last)
+    ir, iu = (torch.as_tensor(a, device=device) for a in default_packed_infos())
+    f_dev = torch.as_tensor(frames, device=device)
+    b_dev = torch.as_tensor(np.asarray(bboxes, np.float32), device=device)
+    kw = dict(yolo_model=yolo, img_size=416, compute_dtype=dtype, rect=True,
+              det_stride=stride, pose_stride=stride)
+    fused = make_full_frame_step(est.parents, fused_resample=True, **kw)
+    unfused = make_full_frame_step(est.parents, **kw)
+
+    def run(step):
+        return [step(est.model, est.smpl_params, f_dev[s:s + CHUNK], b_dev[s:s + CHUNK], ir, iu)
+                for s in range(0, len(frames), CHUNK)]
+
+    run(fused)  # warm-up
+    sync(device)
+    reset_launch_counts()
+    outs = []
+    dev_ms = elapsed_ms(lambda: outs.extend(run(fused)), device)
+    launches = fused_letterbox_crop_cuda.launches
+    reba, rula, best = (torch.cat([o[i] for o in outs]).cpu() for i in range(3))
+    ref = run(unfused)
+    ref_reba, ref_rula, ref_best = (torch.cat([o[i] for o in ref]).cpu() for i in range(3))
+    best_diff = float((best.float() - ref_best.float()).abs().max())
+    same_scores = bool(torch.equal(reba, ref_reba) and torch.equal(rula, ref_rula))
+
+    # Equal strides: the step's kernel reads every stride-th frame and both
+    # outputs cover each frame it reads.
+    f0, b0 = f_dev[:CHUNK], b_dev[:CHUNK]
+    core = make_pose_core(est.parents, pose_stride=stride)
+
+    def resample():
+        return fused_letterbox_crop(f0, b0, out_dtype=dtype, frame_stride=stride)
+
+    with torch.inference_mode():
+        letter, crops = resample()
+        euler = core(est.model, est.smpl_params, crops)[0]
+        chunk_ms = {
+            "letterbox+crop": time_ms(resample),
+            "yolo": time_ms(lambda: yolo_forward(yolo, letter), reps=5, per_rep=1, warmup=2),
+            "pose": time_ms(lambda: core(est.model, est.smpl_params, crops), reps=5, per_rep=1,
+                            warmup=2),
+            "score": time_ms(lambda: (reba_frame_scores(euler, ir), rula_frame_scores(euler, iu)),
+                             reps=5, per_rep=2, warmup=2)}
+    print(json.dumps({
+        "phase": "full_frame_fast" if fast else "full_frame_strict", "frames": len(frames),
+        "chunk": CHUNK, "det_stride": stride, "pose_stride": stride, "dtype": str(dtype),
+        "detector_frames_per_chunk": letter.shape[0], "k2_launches": launches,
+        "device_ms": dev_ms, "frames_per_s": len(frames) / dev_ms * 1e3, "chunk_ms": chunk_ms,
+        "det_best_max_diff_vs_unfused": best_diff, "scores_equal_unfused": same_scores,
+        "reba_range": [int(reba.min()), int(reba.max())],
+        "rula_range": [int(rula.min()), int(rula.max())]}))
+    if not (reba.shape == (len(frames),) and best.shape == (-(-len(frames) // stride),)):
+        raise AssertionError(f"full-frame shapes: reba {tuple(reba.shape)}, best {tuple(best.shape)}")
+    if not (int(reba.min()) >= 1 and int(reba.max()) <= 12
+            and int(rula.min()) >= 1 and int(rula.max()) <= 7):
+        raise AssertionError("full-frame scores out of range")
+    if not (torch.isfinite(best).all() and best_diff < 1e-3 and same_scores):
+        raise AssertionError(f"fused vs unfused: det_best {best_diff}, scores equal {same_scores}")
+    if launches <= 0:
+        raise AssertionError("the full-frame step launched no letterbox+crop kernel")
     return launches
+
+
+def skin_bound_ms(B, V, NB, P, J) -> tuple:
+    """(bound ms, 'bytes' | 'operations') of K4: the tables read once, the
+    per-frame inputs read once, the vertices written once; ~2 kFLOP per
+    vertex-frame (shape and pose blends, the 24-joint affine blend, the
+    3x4 transform) in f32 off the tensor cores."""
+    n_bytes = 4 * (V * 3 * (NB + P) + V * J + V * 3 + B * (NB + P + 12 * J) + B * V * 3)
+    n_flops = B * V * (2 * (3 * (NB + P) + 12 * J + 9) + 6)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def debug_mesh(device, cfg, smpl, variables, aa, track_frames) -> dict:
+    """K4 against its plain version on the card at B = 1 and B = 64, LBS
+    against the plain forward, timings, then the --debug_frame mesh export
+    through the Predictor (the obj half; the figure needs matplotlib)."""
+    from poserisk_release_tpu_torch.models.detector import StubDetector
+    from poserisk_release_tpu_torch.ops.lbs import LBS, _lbs_impl, skin_inputs
+    from poserisk_release_tpu_torch.ops.skin import skin_vertices_cuda, skin_vertices_plain
+    from poserisk_release_tpu_torch.pipeline import Predictor
+
+    lbs = LBS(smpl["neutral"], device)
+    p = lbs.params
+    tables = (p["v_template"], p["shapedirs"], p["posedirs"], p["weights"])
+    V, J = p["weights"].shape
+    NB, P = p["shapedirs"].shape[1], p["posedirs"].shape[1]
+    rng = np.random.RandomState(2)
+    line = {"phase": "skin_check"}
+    row = None
+    for B in (1, CHUNK):
+        pose = torch.as_tensor(rng.uniform(-1.0, 1.0, (B, 72)).astype(np.float32), device=device)
+        betas = torch.as_tensor(rng.normal(0, 0.5, (B, 10)).astype(np.float32), device=device)
+        betas[::3] = 0.0  # the template-betas fallback on every third frame
+        with torch.no_grad():
+            eff_betas, pose_map, affines, _ = skin_inputs(p, pose, betas, lbs.parents)
+            args = (eff_betas.contiguous(), pose_map.contiguous(), affines.contiguous()) + tables
+            err = float((skin_vertices_cuda(*args) - skin_vertices_plain(*args)).abs().max())
+            zeros = torch.zeros((B, 3), device=device)
+            lbs_err = float((lbs(pose, betas)[0] - _lbs_impl(p, pose, betas, zeros,
+                                                            lbs.parents)[0]).abs().max())
+            sd3, pd3 = p["shapedirs"].reshape(V, 3, NB), p["posedirs"].reshape(V, 3, P)
+
+            def library():
+                v = (p["v_template"][None] + torch.einsum("bs,vcs->bvc", eff_betas, sd3)
+                     + torch.einsum("bk,vck->bvc", pose_map, pd3))
+                M = torch.einsum("vj,bjk->bvk", p["weights"], affines)
+                return torch.einsum("bvij,bvj->bvi", M[..., :9].reshape(B, V, 3, 3), v) + M[..., 9:]
+
+            lib_err = float((library() - skin_vertices_plain(*args)).abs().max())
+            ms = time_ms(lambda: skin_vertices_cuda(*args))
+            plain_ms = time_ms(lambda: skin_vertices_plain(*args))
+            library_ms = time_ms(library)
+        bound_ms, bound_by = skin_bound_ms(B, V, NB, P, J)
+        line[f"B{B}"] = {"max_abs_err_m": err, "lbs_max_abs_err_m": lbs_err, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "library_max_abs_err_m": lib_err, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        # Another summation order than the plain version's matmuls: f32
+        # rounding of ~220-term sums at a vertex scale of ~1 m.
+        if not (err <= 1e-5 and lbs_err <= 1e-5):
+            raise AssertionError(f"skin kernel at B={B}: {err} m, LBS {lbs_err} m")
+        if B == 1:  # the debug export's size, the main path's shape
+            row = {"name": "skin_vertices_cuda", "route": "cuda",
+                   "source": "poserisk_release_tpu_torch/csrc/skin.cu",
+                   "replaces": "poserisk_release_tpu/ops/lbs_pallas.py:74", "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms}
+    print(json.dumps(line))
+
+    k = int(track_frames[len(track_frames) // 2])
+    pred = Predictor(cfg, debug=True, debug_frame=k, visualize=False, detector=StubDetector(),
+                     spin_variables=variables, device=device)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    pred._lbs("neutral")  # tables on the card before the counted run
+    reset_launch_counts()
+    idx = pred._save_debug_mesh(aa, track_frames, out_dir)
+    sync(device)
+    row["launches"] = skin_vertices_cuda.launches
+    with open(os.path.join(out_dir, "smpl_model.obj")) as f:
+        verts = np.array([ln.split()[1:] for ln in f if ln.startswith("v ")], np.float64)
+    print(json.dumps({"phase": "debug_mesh", "debug_frame": k, "track_index": idx,
+                      "k4_launches": row["launches"], "vertices": len(verts),
+                      "extent_mm": float(np.ptp(verts, axis=0).max()) if len(verts) else None}))
+    if verts.shape != (6890, 3) or not np.isfinite(verts).all():
+        raise AssertionError(f"debug mesh: {verts.shape} vertices or non-finite values")
+    if row["launches"] <= 0:
+        raise AssertionError("the debug mesh launched no skinning kernel")
+    return row
 
 
 def main() -> int:
@@ -272,8 +683,9 @@ def main() -> int:
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
 
     t0 = time.perf_counter()
-    _build.build(["crop"])
-    print(json.dumps({"phase": "build", "sources": ["crop.cu"],
+    sources = ["crop", "letterbox_crop", "skin"]
+    _build.build(sources)
+    print(json.dumps({"phase": "build", "sources": [n + ".cu" for n in sources],
                       "seconds": time.perf_counter() - t0}))
 
     rng = np.random.RandomState(0)
@@ -288,7 +700,9 @@ def main() -> int:
 
     tracks = MultiPersonTracker(StubDetector())(frames)
     main_bboxes, _ = filter_and_select_target(tracks, len(frames), 0.33)
-    kernel = check_crop_kernel(device, frames, np.asarray(main_bboxes, np.float32))
+    main_bboxes = np.asarray(main_bboxes, np.float32)
+    k1 = check_crop_kernel(device, frames, main_bboxes)
+    k2 = check_letterbox_crop_kernel(device, frames, main_bboxes)
 
     cpu_est = PoseEstimator(cfg, smpl, variables=variables, device="cpu")
 
@@ -296,14 +710,21 @@ def main() -> int:
         e, j, _ = cpu_est.run_from_frames(frames, track_frames[:k], bboxes[:k], chunk=k)
         return e, j
 
-    kernel["launches"] = main_path(device, frames, False, variables, smpl, cfg, cpu_ref)
+    k1["launches"], aa, track_frames = main_path(device, frames, False, variables, smpl, cfg,
+                                                 cpu_ref)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("strict path left TF32 on")
     print(json.dumps({"phase": "tf32", "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
     main_path(device, frames, True, variables, smpl, cfg)
 
-    print(json.dumps({"kernels": [kernel]}))
+    k2_launches, yolo_sd = detector_path(device, frames)
+    k2_launches += full_frame(device, frames, main_bboxes, yolo_sd, variables, smpl, cfg, False)
+    k2_launches += full_frame(device, frames, main_bboxes, yolo_sd, variables, smpl, cfg, True)
+    k2["launches"] = k2_launches
+    k4 = debug_mesh(device, cfg, smpl, variables, aa, track_frames)
+
+    print(json.dumps({"kernels": [k1, k2, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

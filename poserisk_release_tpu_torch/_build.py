@@ -39,9 +39,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(osp.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return osp.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+    """The library's path, keyed by the source, every csrc/ header (a
+    source may include any of them) and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(osp.join(CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return osp.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start_build(name: str):

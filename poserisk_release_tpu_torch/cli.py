@@ -2,7 +2,7 @@
 
     python -m poserisk_release_tpu_torch.cli --type REBA,RULA --input video.mp4 \
         --info additional_information.json --output out [--gpu 0] \
-        [--visualize] [--debug] [--debug_joints "Neck,L_Hip"] [--cpu]
+        [--visualize] [--debug] [--debug_joints "Neck,L_Hip"] [--debug_frame N] [--cpu]
 
 Flags and defaults mirror the JAX package's cli.py (and the reference's
 main/run.py:10-20). `--gpu N` selects CUDA device N; `--cpu` runs on the
@@ -21,7 +21,7 @@ from poserisk_release_tpu_torch.config import default_config, load_yaml_config
 # with the JAX package's CLI, refused when set.
 LATER_SLICE_FLAGS = {
     "spin_int8": (False, "Queue 1 item 14 (int8 PTQ)"),
-    "fast_detector": (False, "Queue 1 items 10 and 14 (YOLOv3 detector, int8)"),
+    "fast_detector": (False, "Queue 1 item 14 (int8 detector: --fast_detector is rect + int8)"),
     "calibration": ("", "Queue 1 item 14 (int8 PTQ)"),
     "recalibrate_per_video": (False, "Queue 1 item 14 (int8 PTQ)"),
     "num_devices": (0, "Queue 1 item 15 (torch.distributed mesh)"),
@@ -30,7 +30,6 @@ LATER_SLICE_FLAGS = {
     "pp": (1, "Queue 1 item 15 (torch.distributed mesh)"),
     "ep": (1, "Queue 1 item 15 (torch.distributed mesh)"),
     "streaming": (False, "Queue 1 item 12 (streaming scorer)"),
-    "debug_frame": (-1, "Queue 2 K4 (full vertex LBS, debug mesh export)"),
 }
 
 
@@ -54,6 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--debug", action="store_true", help="for debuging")
     parser.add_argument("--debug_joints", type=str, default="",
                         help='for debuging, input joint names (i.e. "Neck,L_Hip")')
+    parser.add_argument("--debug_frame", type=int, default=-1,
+                        help="for debuging, export the SMPL mesh and 3D "
+                             "skeleton of this frame (with --debug)")
     parser.add_argument("--cfg", type=str, default=None, help="YAML config override")
     parser.add_argument("--gender", type=str, default="neutral",
                         choices=("neutral", "male", "female"),
@@ -85,7 +87,6 @@ def build_parser() -> argparse.ArgumentParser:
                         help="video-decode threads (bit-identical frames)")
     # Later slices of the port: parsed so the JAX package's command lines
     # give a clear error instead of an unknown-flag failure.
-    parser.add_argument("--debug_frame", type=int, default=-1, help=argparse.SUPPRESS)
     parser.add_argument("--spin_int8", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--fast_detector", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--calibration", type=str, default="", help=argparse.SUPPRESS)
@@ -196,6 +197,7 @@ def main(argv=None) -> int:
         score_type=args.type,
         debug=args.debug,
         debug_joints=args.debug_joints,
+        debug_frame=args.debug_frame,
         visualize=args.visualize,
         gender=args.gender,
         multi_person=args.multi_person,

@@ -105,12 +105,14 @@ class DetectorConfig:
     # Frames per decoded window fed to the detector (the reference used 8,
     # lib/core/base.py:41).
     batch_size: int = 64
-    # Rectangular detector canvas (a later slice, with the YOLO detector).
+    # Rectangular detector canvas (ops/crop.rect_canvas_geometry): the
+    # square letterbox's content on a canvas padded only to a multiple of 32.
     rect_letterbox: bool = False
     # int8 post-training quantization of the conv tower (a later slice).
     int8: bool = False
     int8_min_downsample: int = 1
-    # Device-side top-k detection pre-selection (a later slice).
+    # Device-side top-k detection pre-selection (YoloDetector._pull_detections;
+    # results never depend on it). 0 disables.
     max_device_dets: int = 256
     # Opt-in throughput mode: run the detector only on every Nth frame
     # (global index stride) and fill each track's gaps by linear bbox

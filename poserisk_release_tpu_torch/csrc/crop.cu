@@ -8,17 +8,8 @@
 // matrices and runs two matmuls per channel, because a TPU has no hardware
 // gather and its matrix unit is the fast path. Hopper gathers from L1/L2
 // directly, so here each output pixel reads its 2x2 source taps itself.
-//
-// Semantics (the plain version is ops/crop.py:crop_batch_plain):
-//   step  = (size_px * scale) / S             per axis, from bbox [cx, cy, w, h]
-//   coord = (dst - S/2) * step + centre
-//   i0 = floor(coord), frac = coord - i0, i1 = i0 + 1
-//   w0 = (0 <= i0 < size) * (1 - frac), w1 = (0 <= i1 < size) * frac
-//   out = (wy0 (wx0 p00 + wx1 p01) + wy1 (wx0 p10 + wx1 p11)) * (1/255)
-// Taps outside the frame carry weight 0 (zero border); their indices are
-// clamped before the read. Every product and sum is rounded on its own
-// (__fmul_rn / __fadd_rn, no FMA contraction), in the plain version's
-// order, so the f32 output equals the plain version's bit for bit.
+// The semantics and the rounding rule are in resample_common.cuh (shared
+// with the fused letterbox + crop kernel, letterbox_crop.cu).
 //
 // Bound on an H100 SXM (3.35 TB/s): the crop moves B*S*S*3*out_bytes
 // written plus, for each frame, the bbox window its taps touch (rows x cols
@@ -29,37 +20,9 @@
 // transposes), launched on the caller's stream. Staging the bbox window in
 // shared memory and vectorised stores are left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "resample_common.cuh"
 
 namespace {
-
-struct Taps {
-  int i0, i1;
-  float w0, w1;
-};
-
-__device__ __forceinline__ Taps axis_taps(float coord, int size) {
-  const float f0 = floorf(coord);
-  const float frac = __fsub_rn(coord, f0);
-  // Clamp before the int conversion so far-away coordinates cannot
-  // overflow; [-2, size] keeps the validity of both taps unchanged.
-  const int i0 = (int)fminf(fmaxf(f0, -2.0f), (float)size);
-  const int i1 = i0 + 1;
-  Taps t;
-  t.w0 = (i0 >= 0 && i0 <= size - 1) ? __fsub_rn(1.0f, frac) : 0.0f;
-  t.w1 = (i1 >= 0 && i1 <= size - 1) ? frac : 0.0f;
-  t.i0 = min(max(i0, 0), size - 1);
-  t.i1 = min(max(i1, 0), size - 1);
-  return t;
-}
-
-__device__ __forceinline__ void store(float* out, int64_t i, float v) { out[i] = v; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* out, int64_t i, float v) {
-  out[i] = __float2bfloat16_rn(v);
-}
 
 template <typename OutT>
 __global__ void crop_kernel(const uint8_t* __restrict__ frames,
@@ -71,36 +34,8 @@ __global__ void crop_kernel(const uint8_t* __restrict__ frames,
   if (pix >= S * S) return;
   const int oy = pix / S;
   const int ox = pix - oy * S;
-
-  const float cx = bboxes[4 * b + 0];
-  const float cy = bboxes[4 * b + 1];
-  const float bw = bboxes[4 * b + 2];
-  const float bh = bboxes[4 * b + 3];
-  const float half = 0.5f * (float)S;
-  const float step_x = __fdiv_rn(__fmul_rn(bw, scale), (float)S);
-  const float step_y = __fdiv_rn(__fmul_rn(bh, scale), (float)S);
-  const float xs = __fadd_rn(__fmul_rn(__fsub_rn((float)ox, half), step_x), cx);
-  const float ys = __fadd_rn(__fmul_rn(__fsub_rn((float)oy, half), step_y), cy);
-
-  const Taps ty = axis_taps(ys, H);
-  const Taps tx = axis_taps(xs, W);
-
-  const uint8_t* frame = frames + (int64_t)b * H * W * 3;
-  const uint8_t* p00 = frame + ((int64_t)ty.i0 * W + tx.i0) * 3;
-  const uint8_t* p01 = frame + ((int64_t)ty.i0 * W + tx.i1) * 3;
-  const uint8_t* p10 = frame + ((int64_t)ty.i1 * W + tx.i0) * 3;
-  const uint8_t* p11 = frame + ((int64_t)ty.i1 * W + tx.i1) * 3;
-  const float inv255 = 1.0f / 255.0f;
-  const int64_t o = (((int64_t)b * S + oy) * S + ox) * 3;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float r0 = __fadd_rn(__fmul_rn(tx.w0, (float)p00[c]),
-                               __fmul_rn(tx.w1, (float)p01[c]));
-    const float r1 = __fadd_rn(__fmul_rn(tx.w0, (float)p10[c]),
-                               __fmul_rn(tx.w1, (float)p11[c]));
-    const float v = __fadd_rn(__fmul_rn(ty.w0, r0), __fmul_rn(ty.w1, r1));
-    store(out, o + c, __fmul_rn(v, inv255));
-  }
+  resample::crop_pixel(frames + (int64_t)b * H * W * 3, bboxes + 4 * b, H, W, S, scale,
+                       oy, ox, out + (((int64_t)b * S + oy) * S + ox) * 3);
 }
 
 }  // namespace

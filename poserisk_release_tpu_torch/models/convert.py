@@ -1,4 +1,6 @@
-"""The weight bridge between the JAX package's Flax SPIN tree and the port.
+"""The weight bridges between the JAX package's trees and the port.
+
+SPIN below; the YOLOv3 detector's BN fold and params bridge at the end.
 
 The port's HMR (models/spin.py) carries nkolot/SPIN's module names, so a
 torch checkpoint loads into it directly. The JAX package keeps SPIN weights
@@ -194,3 +196,71 @@ def cached_source_stamp(path: str) -> np.ndarray | None:
         if _SOURCE_STAMP_KEY in data.files:
             return data[_SOURCE_STAMP_KEY]
     return None
+
+
+# ---------------------------------------------------------------------------
+# YOLOv3: the BN fold and the bridge to the JAX package's params tree.
+#
+# The port keeps detector weights as the YoloV3 module's state_dict
+# (models/detector.py): conv_{i}.conv.weight OIHW, conv_{i}.conv.bias, and
+# for unfolded layers conv_{i}.bn.{weight,bias,running_mean,running_var}.
+# The JAX package keeps {conv_{i}: {kernel HWIO, folded_bias_leaky |
+# conv_bias | scale, bias, mean, var}}; whether a bias is followed by leaky
+# ReLU is the spec's batch_norm flag on both sides.
+# ---------------------------------------------------------------------------
+BN_EPS = 1e-5  # torch BatchNorm default; both conv towers use it
+_YOLO_BN = {"scale": "bn.weight", "bias": "bn.bias", "mean": "bn.running_mean",
+            "var": "bn.running_var"}
+_YOLO_BN_INV = {v: k for k, v in _YOLO_BN.items()}
+
+
+def fold_bn_kernel_bias(kernel, bn_scale, bn_bias, bn_mean, bn_var, eps: float = BN_EPS):
+    """Eval-mode BN fold, host-side f32: kernel' = kernel * gamma/sqrt(var+
+    eps) per output channel, bias' = beta - mean * that scale. kernel is OIHW
+    (torch); the arithmetic is the JAX package's, element for element."""
+    inv = 1.0 / np.sqrt(np.asarray(bn_var, np.float32) + eps)
+    mul = inv * np.asarray(bn_scale, np.float32)
+    bias = np.asarray(bn_bias, np.float32) - np.asarray(bn_mean, np.float32) * mul
+    return np.asarray(kernel, np.float32) * mul[:, None, None, None], bias
+
+
+def yolo_params_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX package's float YOLO params (numpy or array-like leaves:
+    unfolded BN, or fold_bn_params' folded_bias_leaky / conv_bias) -> the
+    port's YoloV3 state_dict, numpy f32."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, layer in params.items():
+        for key, value in layer.items():
+            value = np.asarray(_to_np(value), np.float32)
+            if key == "kernel":
+                sd[f"{name}.conv.weight"] = np.ascontiguousarray(np.transpose(value, (3, 2, 0, 1)))
+            elif key in ("folded_bias_leaky", "conv_bias"):
+                sd[f"{name}.conv.bias"] = value
+            elif key in _YOLO_BN:
+                sd[f"{name}.{_YOLO_BN[key]}"] = value
+            else:
+                raise KeyError(f"{name}/{key} is not a float YOLO parameter (the int8 "
+                               "detector is a later slice, ROADMAP Queue 1 item 14)")
+    return sd
+
+
+def state_dict_to_yolo_params(sd: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of yolo_params_to_state_dict: a YoloV3 state_dict -> the
+    JAX package's params tree (kernels HWIO), numpy f32."""
+    from poserisk_release_tpu_torch.models.detector import YOLOV3_SPEC
+
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in sd.items():
+        name, rest = key.split(".", 1)
+        if rest.endswith("num_batches_tracked"):
+            continue
+        layer = params.setdefault(name, {})
+        value = np.asarray(_to_np(value), np.float32)
+        if rest == "conv.weight":
+            layer["kernel"] = np.ascontiguousarray(np.transpose(value, (2, 3, 1, 0)))
+        elif rest == "conv.bias":
+            leaky = YOLOV3_SPEC[int(name.split("_")[1])][4]
+            layer["folded_bias_leaky" if leaky else "conv_bias"] = value
+        else:
+            layer[_YOLO_BN_INV[rest]] = value
+    return params

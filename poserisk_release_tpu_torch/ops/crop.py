@@ -1,4 +1,5 @@
-"""Batched bbox crop: the plain PyTorch version of kernel K1 and its dispatch.
+"""The resamples of raw frames: the bbox crop (kernel K1's plain version and
+its dispatch) and the detector letterbox (kernel K2's letterbox half).
 
 The reference crops one frame at a time on DataLoader workers with
 cv2.warpAffine (reference lib/utils/_img_utils.py:53-101, 219-252): bbox
@@ -18,11 +19,13 @@ division on the CPU is not correctly rounded; that moves a sample by at
 most 1.22e-4 px at |x| < 1024. On smooth images the two agree within 1e-5,
 on pixel noise within 1.25e-4 of full scale.
 
-Output is NHWC in [0, 1], the layout the port's HMR takes.
+Output is NHWC in [0, 1], the layout the port's HMR takes. The letterbox
+half of this module is described where it starts, below crop_batch.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -98,3 +101,136 @@ def crop_batch(
     if images.device.type == "cpu":
         return crop_batch_plain(images, bboxes, scale, out_size, out_dtype)
     raise ValueError(f"crop_batch has no path for device {images.device}")
+
+
+# ---------------------------------------------------------------------------
+# Detector letterbox (the plain version of kernel K2's letterbox half).
+#
+# The upstream detector letterboxes with cv2.resize (INTER_LINEAR, half-pixel
+# centres, edge clamp) onto a gray (128) canvas. Along one axis, output index
+# o inside the content band [pad, pad + new) samples
+#     src = clip((o - pad + 0.5) * size / new - 0.5, 0, size - 1)
+# with two taps (i0 = floor(src), i1 = min(i0 + 1, size - 1)); outside the
+# band both weights are 0. The geometry is static per frame size, so the
+# taps are host tables (float64 positions, f32 weights: the JAX package's
+# _letterbox_axis_matrix row by row). The gray border is
+# 128/255 * (1 - coverage), coverage = (wy0 + wy1) * (wx0 + wx1) in f32 from
+# the same weights, which is exactly 0 outside the band and within an f32
+# rounding of 1 inside it.
+# ---------------------------------------------------------------------------
+GRAY = 128.0 / 255.0
+
+
+def letterbox_geometry(H: int, W: int, img_size: int):
+    """(new_w, new_h, pad_x, pad_y) of the square letterbox: integer-rounded
+    content size and integer pads, as the host cv2 letterbox has them, so
+    the detector's box unmap is exact."""
+    ratio = img_size / max(H, W)
+    new_w, new_h = int(round(W * ratio)), int(round(H * ratio))
+    return new_w, new_h, (img_size - new_w) // 2, (img_size - new_h) // 2
+
+
+def rect_canvas_geometry(H: int, W: int, img_size: int, multiple: int = 32):
+    """Rectangular detector canvas: the square letterbox's content scale,
+    padded on each axis only up to a multiple of the detector's total stride.
+    The leading pad is the square pad modulo the stride, so content keeps
+    its place on the stride-8/16/32 grids. 800x450 frames get a 416x288
+    canvas. Returns (canvas_h, canvas_w, new_w, new_h, pad_x, pad_y)."""
+    ratio = img_size / max(H, W)
+    new_w, new_h = int(round(W * ratio)), int(round(H * ratio))
+    pad_x = ((img_size - new_w) // 2) % multiple
+    pad_y = ((img_size - new_h) // 2) % multiple
+    canvas_w = -(-(new_w + pad_x) // multiple) * multiple
+    canvas_h = -(-(new_h + pad_y) // multiple) * multiple
+    return canvas_h, canvas_w, new_w, new_h, pad_x, pad_y
+
+
+def canvas_geometry(H: int, W: int, img_size: int, rect: bool):
+    """(canvas_h, canvas_w, new_w, new_h, pad_x, pad_y) of the square
+    (rect=False) or rectangular letterbox."""
+    if rect:
+        return rect_canvas_geometry(H, W, img_size)
+    new_w, new_h, pad_x, pad_y = letterbox_geometry(H, W, img_size)
+    return img_size, img_size, new_w, new_h, pad_x, pad_y
+
+
+def letterbox_axis_taps(out: int, pad: int, new_len: int, size: int):
+    """Per-output-index taps of one letterbox axis, as numpy arrays
+    (i0 int32, i1 int32, w0 f32, w1 f32) of length `out`: cv2's half-pixel
+    rule inside the content band, zero weights (and index 0) outside it."""
+    i0 = np.zeros(out, np.int32)
+    i1 = np.zeros(out, np.int32)
+    w0 = np.zeros(out, np.float32)
+    w1 = np.zeros(out, np.float32)
+    o = np.arange(pad, pad + new_len)
+    src = np.clip((o - pad + 0.5) * (size / new_len) - 0.5, 0.0, size - 1.0)
+    lo = np.floor(src).astype(np.int64)
+    frac = (src - lo).astype(np.float32)
+    i0[o] = lo
+    i1[o] = np.minimum(lo + 1, size - 1)
+    w0[o] = 1.0 - frac
+    w1[o] = frac
+    return i0, i1, w0, w1
+
+
+def letterbox_taps(H: int, W: int, img_size: int, rect: bool):
+    """((i0, i1, w0, w1) rows, same for columns, canvas_h, canvas_w) of the
+    square or rect letterbox of an H x W frame."""
+    canvas_h, canvas_w, new_w, new_h, pad_x, pad_y = canvas_geometry(H, W, img_size, rect)
+    return (letterbox_axis_taps(canvas_h, pad_y, new_h, H),
+            letterbox_axis_taps(canvas_w, pad_x, new_w, W), canvas_h, canvas_w)
+
+
+def letterbox_plain(
+    frames_u8: torch.Tensor,  # (B, H, W, 3) uint8
+    img_size: int = 416,
+    rect: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The plain version of K2's letterbox on any device: (B, canvas_h,
+    canvas_w, 3) in [0, 1] with the 128/255 border. Each product and sum is
+    its own op, in the kernel's order, so the f32 outputs agree bit for bit."""
+    H, W = int(frames_u8.shape[1]), int(frames_u8.shape[2])
+    rows, cols, _, _ = letterbox_taps(H, W, img_size, rect)
+    dev = frames_u8.device
+    y0, y1, wy0, wy1 = (torch.as_tensor(a, device=dev) for a in rows)
+    x0, x1, wx0, wx1 = (torch.as_tensor(a, device=dev) for a in cols)
+
+    def px(yi, xi):
+        return frames_u8[:, yi.long()[:, None], xi.long()[None, :]].to(torch.float32)
+
+    wy0c, wy1c = wy0[None, :, None, None], wy1[None, :, None, None]
+    wx0c, wx1c = wx0[None, None, :, None], wx1[None, None, :, None]
+    r0 = wx0c * px(y0, x0) + wx1c * px(y0, x1)
+    r1 = wx0c * px(y1, x0) + wx1c * px(y1, x1)
+    coverage = (wy0 + wy1)[:, None] * (wx0 + wx1)[None, :]
+    border = GRAY * (1.0 - coverage)
+    out = (wy0c * r0 + wy1c * r1) * (1.0 / 255.0) + border[None, :, :, None]
+    return out.to(out_dtype)
+
+
+def _letterbox(frames_u8: torch.Tensor, img_size: int, rect: bool,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    if frames_u8.device.type == "cuda":
+        from poserisk_release_tpu_torch.ops.resample import fused_letterbox_crop_cuda
+
+        letter, _ = fused_letterbox_crop_cuda(
+            frames_u8, None, img_size=img_size, out_dtype=out_dtype, rect=rect)
+        return letter
+    if frames_u8.device.type == "cpu":
+        return letterbox_plain(frames_u8, img_size, rect, out_dtype)
+    raise ValueError(f"the letterbox has no path for device {frames_u8.device}")
+
+
+def letterbox_device(frames_u8: torch.Tensor, img_size: int = 416,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Square (img_size x img_size) letterbox of uint8 frames: K2's
+    letterbox-only mode on a CUDA device, the plain version on the CPU."""
+    return _letterbox(frames_u8, img_size, False, out_dtype)
+
+
+def letterbox_device_rect(frames_u8: torch.Tensor, img_size: int = 416,
+                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Rectangular-canvas letterbox (rect_canvas_geometry) of uint8 frames:
+    K2's letterbox-only mode on a CUDA device, the plain version on the CPU."""
+    return _letterbox(frames_u8, img_size, True, out_dtype)

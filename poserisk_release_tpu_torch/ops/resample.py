@@ -1,19 +1,29 @@
-"""Kernel K1 on Hopper: the batched bbox crop as a hand-written CUDA gather.
+"""Kernels K1 and K2 on Hopper: the resamples of raw frames as CUDA gathers.
 
-Replaces crop_batch_pallas (poserisk_release_tpu/ops/resample_pallas.py:426),
-the TPU kernel that crops through per-frame tap matrices on the matrix unit.
-The CUDA source is csrc/crop.cu (its header states the design and the
-bound); it builds with nvcc at first use (_build.py) and is bound through
-ctypes. The plain version it is held against is ops/crop.crop_batch_plain.
+K1, crop_batch_cuda, replaces crop_batch_pallas
+(poserisk_release_tpu/ops/resample_pallas.py:426): the batched bbox crop of
+the pose path (csrc/crop.cu; plain version ops/crop.crop_batch_plain).
 
-crop_batch_cuda.launches counts the kernel launches of this process, so a
-run can show that its crops went through the kernel.
+K2, fused_letterbox_crop_cuda, replaces fused_letterbox_crop
+(resample_pallas.py:133): one launch writes the detector's letterbox canvas
+and the bbox crop from each frame, under the detection, pose and frame
+strides of the full-frame step (csrc/letterbox_crop.cu; plain version
+fused_letterbox_crop_plain below). Its letterbox-only mode (no boxes) is the
+letterbox of ops/crop.letterbox_device / letterbox_device_rect on the card.
+
+The TPU kernels resample through tap matrices on the matrix unit; the
+sources' headers state the gather design and the bound. Each builds with
+nvcc at first use (_build.py) and is bound through ctypes. Each wrapper's
+`.launches` counts its kernel launches in this process, so a run can show
+that its resamples went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -80,3 +90,167 @@ def crop_batch_cuda(
 
 
 crop_batch_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel K2: the fused detector letterbox + bbox crop (csrc/letterbox_crop.cu).
+# ---------------------------------------------------------------------------
+def _lib_k2():
+    from poserisk_release_tpu_torch import _build
+
+    lib = _build.load("letterbox_crop")
+    if lib.letterbox_crop_launch.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.letterbox_crop_launch.argtypes = [
+            p, ll, i, i,  # frames, frame_step, H, W
+            p, i, i,  # work, n_active, total_blocks
+            p, p, i, i, p, i,  # rows, cols, CH, CW, letter, det_stride
+            p, ll, p, i, ctypes.c_float, i,  # bboxes, bbox_step, crops, S, scale, crop_stride
+            i, p,  # out_bf16, stream
+        ]
+        lib.letterbox_crop_launch.restype = ctypes.c_int
+        lib.letterbox_crop_error_string.argtypes = [ctypes.c_int]
+        lib.letterbox_crop_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_THREADS = 256  # kThreads of letterbox_crop.cu
+
+
+@functools.lru_cache(maxsize=16)
+def _tap_tables(H, W, img_size, rect, device):
+    """Device copies of the letterbox's row and column taps, as (n, 4)
+    int32 rows [i0, i1, bits(w0), bits(w1)], per geometry (read only)."""
+    from poserisk_release_tpu_torch.ops.crop import letterbox_taps
+
+    rows, cols, CH, CW = letterbox_taps(H, W, img_size, rect)
+
+    def pack(taps):
+        i0, i1, w0, w1 = taps
+        return torch.as_tensor(np.stack(
+            [i0, i1, w0.view(np.int32), w1.view(np.int32)], axis=1), device=device)
+
+    return pack(rows), pack(cols), CH, CW
+
+
+@functools.lru_cache(maxsize=64)
+def _work_table(n_sub, det_stride, crop_stride, lb_blocks, crop_blocks, device):
+    """(table, n_active, total_blocks): the sub-frames that have an output,
+    then each one's first block, as one int32 device tensor (read only)."""
+    b = np.arange(n_sub)
+    has_lb = b % det_stride == 0
+    has_crop = (b % crop_stride == 0) if crop_stride else np.zeros(n_sub, bool)
+    active = has_lb | has_crop
+    blocks = (has_lb * lb_blocks + has_crop * crop_blocks)[active]
+    first = np.concatenate([[0], np.cumsum(blocks)])
+    table = np.concatenate([b[active], first]).astype(np.int32)
+    return torch.as_tensor(table, device=device), int(active.sum()), int(first[-1])
+
+
+def fused_letterbox_crop_cuda(
+    frames_u8: torch.Tensor,  # (B, H, W, 3) uint8 on a CUDA device
+    bboxes: torch.Tensor | None,  # (B, 4) float32 [cx, cy, w, h], or None
+    img_size: int = 416,
+    out_size: int = 224,
+    scale: float = 1.2,
+    out_dtype: torch.dtype = torch.float32,
+    det_stride: int = 1,
+    crop_stride: int = 1,
+    frame_stride: int = 1,
+    rect: bool = True,
+):
+    """(letterbox (ceil(B'/det_stride), canvas_h, canvas_w, 3), crops
+    (ceil(B'/crop_stride), out_size, out_size, 3)), B' = ceil(B /
+    frame_stride): letterbox_plain(frames[::frame_stride*det_stride]) and
+    crop_batch_plain(frames[::frame_stride*crop_stride]) from one launch.
+    bboxes=None is the letterbox-only mode and returns (letterbox, None).
+    `frames_u8` may be a batch slice (frames[::k]) of a contiguous tensor.
+    Raises on any input the kernel does not take and on a refused launch."""
+    if frames_u8.device.type != "cuda":
+        raise ValueError(
+            f"fused_letterbox_crop_cuda needs CUDA frames, got {frames_u8.device}")
+    if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4 or frames_u8.shape[3] != 3:
+        raise ValueError(
+            f"frames must be (B, H, W, 3) uint8, got {tuple(frames_u8.shape)} {frames_u8.dtype}")
+    B, H, W = (int(s) for s in frames_u8.shape[:3])
+    if frames_u8.stride()[1:] != (W * 3, 3, 1):
+        raise ValueError("each frame must be contiguous (only the batch axis may be strided)")
+    if min(det_stride, frame_stride) < 1 or crop_stride < 1:
+        raise ValueError(f"strides must be >= 1, got det {det_stride}, crop "
+                         f"{crop_stride}, frame {frame_stride}")
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
+    crop = bboxes is not None
+    if crop and (bboxes.device != frames_u8.device or bboxes.dtype != torch.float32
+                 or tuple(bboxes.shape) != (B, 4) or not bboxes.is_contiguous()):
+        raise ValueError(
+            f"bboxes must be contiguous ({B}, 4) float32 on {frames_u8.device}, got "
+            f"{tuple(bboxes.shape)} {bboxes.dtype} on {bboxes.device}")
+
+    dev = frames_u8.device
+    rows, cols, CH, CW = _tap_tables(H, W, int(img_size), bool(rect), dev)
+    n_sub = -(-B // frame_stride)
+    n_det = -(-n_sub // det_stride)
+    n_crop = -(-n_sub // crop_stride)
+    S = int(out_size)
+    letter = torch.empty((n_det, CH, CW, 3), dtype=out_dtype, device=dev)
+    crops = (torch.empty((n_crop, S, S, 3), dtype=out_dtype, device=dev) if crop else None)
+    if B == 0:
+        return letter, crops
+    lb_blocks = -(-CH * CW // _THREADS)
+    crop_blocks = -(-S * S // _THREADS) if crop else 0
+    work, n_active, total_blocks = _work_table(
+        n_sub, det_stride, crop_stride if crop else 0, lb_blocks, crop_blocks, dev)
+    lib = _lib_k2()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.letterbox_crop_launch(
+            frames_u8.data_ptr(), frames_u8.stride(0) * frame_stride, H, W,
+            work.data_ptr(), n_active, total_blocks,
+            rows.data_ptr(), cols.data_ptr(), CH, CW, letter.data_ptr(), det_stride,
+            bboxes.data_ptr() if crop else None, 4 * frame_stride,
+            crops.data_ptr() if crop else None, S, float(scale),
+            crop_stride if crop else 0, int(out_dtype == torch.bfloat16), stream)
+    if code != 0:
+        raise RuntimeError(
+            f"letterbox+crop kernel launch failed: "
+            f"{lib.letterbox_crop_error_string(code).decode()}")
+    fused_letterbox_crop_cuda.launches += 1
+    return letter, crops
+
+
+fused_letterbox_crop_cuda.launches = 0
+
+
+def fused_letterbox_crop_plain(frames_u8, bboxes, img_size=416, out_size=224, scale=1.2,
+                               out_dtype=torch.float32, det_stride=1, crop_stride=1,
+                               frame_stride=1, rect=True):
+    """The plain version of K2: letterbox_plain(frames[::g*d]) and
+    crop_batch_plain(frames[::g*p]), g = frame_stride."""
+    from poserisk_release_tpu_torch.ops.crop import crop_batch_plain, letterbox_plain
+
+    g = frame_stride
+    letter = letterbox_plain(frames_u8[::g * det_stride], img_size, rect, out_dtype)
+    crops = None
+    if bboxes is not None:
+        step = g * crop_stride
+        crops = crop_batch_plain(frames_u8[::step], bboxes[::step], scale, out_size, out_dtype)
+    return letter, crops
+
+
+def fused_letterbox_crop(frames_u8, bboxes, img_size=416, out_size=224, scale=1.2,
+                         out_dtype=torch.float32, det_stride=1, crop_stride=1,
+                         frame_stride=1, rect=True):
+    """K2 on a CUDA device, its plain version on the CPU; any other device
+    raises. There is no fallback from the kernel to the plain version."""
+    args = (img_size, out_size, scale, out_dtype, det_stride, crop_stride,
+            frame_stride, rect)
+    if frames_u8.device.type == "cuda":
+        if bboxes is not None:
+            bboxes = bboxes.to(device=frames_u8.device, dtype=torch.float32).contiguous()
+        return fused_letterbox_crop_cuda(frames_u8, bboxes, *args)
+    if frames_u8.device.type == "cpu":
+        if bboxes is not None:
+            bboxes = bboxes.to(dtype=torch.float32)
+        return fused_letterbox_crop_plain(frames_u8, bboxes, *args)
+    raise ValueError(f"fused_letterbox_crop has no path for device {frames_u8.device}")

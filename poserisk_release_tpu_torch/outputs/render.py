@@ -6,9 +6,9 @@ the even-snapped track index idx//2*2 (base.py:312 quirk); 'Not detected
 target' on frames outside the track; green bbox drawn with the reference's
 corner math (vis_utils.py:278-294). Frames come from memory (no jpg re-read).
 
-Own copy of the JAX package's renderer. cv2 is imported inside the functions
-so that importing the module needs no opencv. The 3D pose figure belongs to
-the debug_frame path, which arrives with the full vertex LBS.
+Also the --debug_frame 3D skeleton figure (vis_3d_pose, vis_utils.py
+parity). Own copy of the JAX package's renderer. cv2 and matplotlib are
+imported inside the functions, so importing the module needs neither.
 """
 
 from __future__ import annotations
@@ -124,3 +124,52 @@ def render_result_video(
         ))
     writer.release()
     return out_file
+
+
+SMPL_RIGHT_JOINTS = (2, 5, 8, 11, 14, 17, 19, 21, 23)
+
+
+def axis_equal_3d(ax) -> None:
+    """Equalise a 3-D axes' aspect from its CURRENT limits
+    (vis_utils.py:172-179 parity): each axis is re-centred on its midpoint
+    with half-range = half the largest current extent. Called after
+    vis_3d_pose's fixed +-800 limits it is an exact no-op, matching the
+    reference's call order."""
+    extents = np.array([getattr(ax, f"get_{dim}lim")() for dim in "xyz"])
+    sz = extents[:, 1] - extents[:, 0]
+    centers = np.mean(extents, axis=1)
+    r = max(abs(sz)) / 2
+    for ctr, dim in zip(centers, "xyz"):
+        getattr(ax, f"set_{dim}lim")(ctr - r, ctr + r)
+
+
+def vis_3d_pose(kps_3d: np.ndarray, skeleton: Sequence, file_path: str, frame: int = 0) -> None:
+    """The reference's 3D skeleton figure of one frame's joints (mm)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure()
+    ax = fig.add_subplot(111, projection="3d")
+    fig.set_size_inches(5, 3.75)
+
+    for i1, i2 in skeleton:
+        xs = np.array([kps_3d[i1, 0], kps_3d[i2, 0]])
+        ys = np.array([kps_3d[i1, 1], kps_3d[i2, 1]])
+        zs = np.array([kps_3d[i1, 2], kps_3d[i2, 2]])
+        ax.plot(xs, zs, -ys, c="r", linewidth=1)
+        for j in (i1, i2):
+            c = "g" if j in SMPL_RIGHT_JOINTS else "b"
+            ax.scatter(kps_3d[j, 0], kps_3d[j, 2], -kps_3d[j, 1], c=c, marker="o")
+
+    ax.set_xlabel("X axis")
+    ax.set_ylabel("Z axis")
+    ax.set_zlabel("Y axis")
+    ax.set_xlim3d(-800, 800)
+    ax.set_ylim3d(-800, 800)
+    ax.set_zlim3d(-800, 800)
+    ax.set_title(f"3D Skeleton - frame: {frame}")
+    axis_equal_3d(ax)  # reference call order (vis_utils.py:230); no-op here
+    fig.savefig(file_path)
+    plt.close(fig=fig)

@@ -8,18 +8,22 @@ scoring, stats, plots, annotated video, result txts and debug CSVs.
 
 Device policy: every entry point runs on CUDA unless the caller passes
 device="cpu"; with no device given and no CUDA present it raises, it never
-carries on quietly on the CPU. On the card the crop goes through the
-hand-written kernel (ops/resample.crop_batch_cuda); on the CPU through its
-plain version.
+carries on quietly on the CPU. On the card the hand-written kernels do the
+resampling and the skinning: the crop (K1, ops/resample.crop_batch_cuda),
+the detector's letterbox (K2, ops/resample.fused_letterbox_crop_cuda) and
+the --debug_frame mesh (K4, ops/skin.skin_vertices_cuda); on the CPU their
+plain versions do.
 
 Numerics: the strict (default) path turns TF32 off for cuDNN convolutions
 and matmuls, which default to TF32 on Hopper and would break f32 parity
 with the JAX reference. fast=True runs the ResNet backbone in bfloat16 on
 bf16 crops, with the IEF head and everything after it in float32.
 
-Not in this slice (each raises rather than degrading): the YOLOv3 detector
-(DETECTOR.weights present), the debug_frame mesh export (needs the full
-vertex LBS), int8 SPIN, mesh parallelism and the streaming scorer.
+Detector: YOLOv3 (models/detector.YoloDetector) when DETECTOR.weights
+exists, else the full-frame StubDetector.
+
+Not in this slice (each raises rather than degrading): the int8 detector
+and int8 SPIN, mesh parallelism and the streaming scorer.
 """
 
 from __future__ import annotations
@@ -38,11 +42,11 @@ from poserisk_release_tpu_torch.body.smpl import SMPLFamily
 from poserisk_release_tpu_torch.config import Config, default_config
 from poserisk_release_tpu_torch.io.video import read_video_parallel
 from poserisk_release_tpu_torch.models import convert as model_convert
-from poserisk_release_tpu_torch.models.detector import StubDetector
+from poserisk_release_tpu_torch.models.detector import INT8_LATER, StubDetector, YoloDetector
 from poserisk_release_tpu_torch.models.spin import HMR, init_spin_params, load_mean_params
 from poserisk_release_tpu_torch.ops.crop import crop_batch
-from poserisk_release_tpu_torch.ops.lbs import smpl_params_to_torch
-from poserisk_release_tpu_torch.outputs.render import render_result_video
+from poserisk_release_tpu_torch.ops.lbs import LBS, smpl_params_to_torch
+from poserisk_release_tpu_torch.outputs.render import render_result_video, vis_3d_pose
 from poserisk_release_tpu_torch.outputs.stats import (
     post_process_scores,
     print_result_summary,
@@ -51,6 +55,7 @@ from poserisk_release_tpu_torch.outputs.stats import (
 )
 from poserisk_release_tpu_torch.outputs.writers import (
     pose_to_str,
+    save_obj,
     save_csv_pose_log,
     save_eval_pose_log_csv,
     save_score_log_csv,
@@ -304,15 +309,25 @@ def validate_rotation_roundtrip(axis_angles) -> None:
     assert_euler_roundtrip(axis_angle_to_rotmat(aa))
 
 
-def build_detector(cfg: Config):
-    """The Predictor's detector policy: with DETECTOR.weights present the
-    YOLOv3 detector would run, which is a later slice of the port, so that
-    raises rather than silently using the stub; without weights the
-    full-frame StubDetector keeps weight-free environments runnable."""
+def build_detector(cfg: Config, device=None):
+    """The Predictor's detector policy: YOLOv3 from DETECTOR.weights when
+    the file exists, else the full-frame StubDetector that keeps weight-free
+    environments runnable. DETECTOR.int8 raises: the int8 detector is a
+    later slice of the port, and running float instead would be a silent
+    change of result."""
+    if cfg.DETECTOR.int8:
+        raise NotImplementedError(f"DETECTOR.int8: {INT8_LATER}")
     if osp.isfile(cfg.DETECTOR.weights):
-        raise NotImplementedError(
-            f"detector weights found at {cfg.DETECTOR.weights}: the YOLOv3 "
-            "detector is a later slice of the port (ROADMAP Queue 1 item 10)")
+        return YoloDetector.from_weights(
+            cfg.DETECTOR.weights,
+            img_size=cfg.DETECTOR.img_size,
+            detection_threshold=cfg.DETECTOR.detection_threshold,
+            nms_threshold=cfg.DETECTOR.nms_threshold,
+            batch_size=cfg.DETECTOR.batch_size,
+            rect=cfg.DETECTOR.rect_letterbox,
+            max_device_dets=cfg.DETECTOR.max_device_dets,
+            device=device,
+        )
     print("[poserisk] no detector weights found; using full-frame stub detector")
     return StubDetector()
 
@@ -347,11 +362,6 @@ class Predictor:
         validate_rotations: bool = False,
         device=None,
     ):
-        if debug and debug_frame >= 0:
-            raise NotImplementedError(
-                "--debug_frame exports the SMPL mesh, which needs the full "
-                "vertex LBS and its kernel (ROADMAP Queue 2, K4): a later "
-                "slice of the port")
         self.cfg = cfg or default_config()
         self.device = resolve_device(device)
         self.smpl = SMPLFamily(self.cfg.SPIN.smpl_model_dir, allow_synthetic=allow_synthetic_assets)
@@ -363,13 +373,16 @@ class Predictor:
         for g in self.person_genders.values():
             if g not in ("neutral", "male", "female"):
                 raise ValueError(f"Invalid gender: {g}")
+        self._lbs_cache: Dict[str, LBS] = {}
         self.pose_estimator = PoseEstimator(
             self.cfg, self.smpl, variables=spin_variables, gender=gender,
             fast=fast, device=self.device,
         )
 
+        # The detector comes after the PoseEstimator, which turns TF32 off on
+        # the strict path before the detector's first convolution.
         if detector is None:
-            detector = build_detector(self.cfg)
+            detector = build_detector(self.cfg, self.device)
         self.tracker = MultiPersonTracker(
             detector, detection_stride=int(self.cfg.DETECTOR.detection_stride),
             adaptive=bool(self.cfg.DETECTOR.adaptive_stride),
@@ -382,6 +395,7 @@ class Predictor:
         self.run_rula = "RULA" in scores
 
         self.debugging = debug
+        self.debug_frame = debug_frame
         self.visualize = visualize
         joints = debug_joints.replace(" ", "").split(",")
         if joints == [""]:
@@ -393,6 +407,13 @@ class Predictor:
             self.debug_joints = joints
         self.validate_rotations = validate_rotations
         self.timings: Dict[str, float] = {}
+
+    def _lbs(self, gender: str) -> LBS:
+        """Gender-keyed LBS cache for the debug mesh (the obj export uses
+        the CURRENT track's body model under --person_genders)."""
+        if gender not in self._lbs_cache:
+            self._lbs_cache[gender] = LBS(self.smpl[gender], self.device)
+        return self._lbs_cache[gender]
 
     def __call__(self, input_path: str, info_path: str, output_path: str):
         os.makedirs(output_path, exist_ok=True)
@@ -502,6 +523,13 @@ class Predictor:
         if self.validate_rotations:
             validate_rotation_roundtrip(axis_angles)
 
+        # --- single-frame debug branch ------------------------------------
+        if self.debugging and self.debug_frame >= 0:
+            print(f"\n===> Debug Result at frame #{self.debug_frame}")
+            self._visualize_joint_cam_mesh(axis_angles, joint_cam, frames, debug_path)
+            print("\n Debug files are saved in : ", debug_path)
+            return None
+
         add_info = load_add_info(self.cfg, info_path)
 
         pose_str = pose_to_str(result)
@@ -563,3 +591,26 @@ class Predictor:
         print("Result files saved in ", output_path)
         print_result_summary(summary)
         return summary
+
+    def _save_debug_mesh(self, axis_angles, frames, output_path) -> int:
+        """The obj half of the debug export: the SMPL mesh of the debug
+        frame (the current track's gender, vertices in mm) as smpl_model.obj.
+        Returns the frame's index in the track."""
+        hits = np.flatnonzero(np.asarray(frames) == self.debug_frame)
+        if hits.size == 0:
+            raise ValueError(
+                f"--debug_frame {self.debug_frame} is not among the selected "
+                f"track's frames ({len(frames)} tracked frames in "
+                f"[{int(np.min(frames))}, {int(np.max(frames))}])"
+            )
+        idx = int(hits[0])
+        pose = axis_angles[idx].reshape(1, -1)
+        verts, _ = self._lbs(self.pose_estimator.gender)(pose)
+        verts = verts.cpu().numpy().astype(np.float32).reshape(-1, 3) * 1000
+        save_obj(verts, self.smpl.face, osp.join(output_path, "smpl_model.obj"))
+        return idx
+
+    def _visualize_joint_cam_mesh(self, axis_angles, joint_cam, frames, output_path):
+        idx = self._save_debug_mesh(axis_angles, frames, output_path)
+        vis_3d_pose(joint_cam[idx], self.smpl.skeleton,
+                    osp.join(output_path, "joint_3d.png"), frame=self.debug_frame)

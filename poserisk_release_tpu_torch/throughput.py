@@ -1,15 +1,19 @@
-"""The pose step shared by the port's entry points.
+"""The pose step and the full-frame step shared by the port's entry points.
 
-Port of make_pose_core of the JAX package's throughput.py: crops -> SPIN ->
-Euler angles -> root-forced axis-angle -> SMPL joints. The JAX package's
-fused whole-clip bench graphs (detector + crop + pose + score) arrive with
-the detector slice of the port.
+Port of the JAX package's throughput.py: make_pose_core (crops -> SPIN ->
+Euler angles -> root-forced axis-angle -> SMPL joints), make_pose_and_score_step
+(+ REBA/RULA), and make_full_frame_step, the per-frame device path of a
+whole clip: letterbox + YOLOv3 forward on the detector frames, crop + pose +
+scores on the tracked boxes. With fused_resample the letterbox and the crop
+come from one launch of kernel K2 (ops/resample.fused_letterbox_crop).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from poserisk_release_tpu_torch.ops.lbs import joints_only
@@ -65,3 +69,109 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1):
         return euler, joint_cam, aa_forced
 
     return core
+
+
+def make_pose_and_score_step(parents: Tuple[int, ...], pose_stride: int = 1):
+    """Returns step(spin_model, smpl_params, crops, info_reba, info_rula) ->
+    (reba_scores, rula_scores, euler_deg, joint_cam_mm). The crops' dtype
+    and the HMR's backbone dtype select strict f32 or fast bf16; rotations
+    and scoring stay f32. With pose_stride > 1 `crops` are anchor crops and
+    every output covers crops.shape[0] * pose_stride frames."""
+    from poserisk_release_tpu_torch.scoring.reba import reba_frame_scores
+    from poserisk_release_tpu_torch.scoring.rula import rula_frame_scores
+
+    core = make_pose_core(parents, pose_stride=pose_stride)
+
+    def step(spin_model, smpl_params, crops, info_reba, info_rula):
+        euler, joint_cam, _aa = core(spin_model, smpl_params, crops)
+        reba = reba_frame_scores(euler, info_reba)["score"]
+        rula = rula_frame_scores(euler, info_rula)["score"]
+        return reba, rula, euler, joint_cam
+
+    return step
+
+
+def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: int = 416,
+                         compute_dtype: torch.dtype = torch.float32, rect: bool = True,
+                         fused_resample: bool = False, det_stride: int = 1,
+                         pose_stride: int = 1):
+    """The full per-frame device path, detector included.
+
+    step(yolo_model, spin_model, smpl_params, frames_u8, bboxes, info_reba,
+    info_rula) -> (reba, rula, det_best_score). frames are raw uint8 clip
+    frames on the device; the detector runs on their letterbox; the crops use
+    the given (tracked) boxes, as in the real two-stage pipeline where SORT
+    sits between detection and cropping on the host. compute_dtype is the
+    resample outputs' dtype (f32 strict, bf16 fast); the models compute in
+    their own parameters' dtype, so for bf16 pass a YOLO cast to bf16 and an
+    HMR whose backbone is (HMR.cast_backbone).
+
+    rect=True letterboxes onto the rectangular canvas (416x288 for 800x450
+    frames). det_stride > 1 runs the letterbox and the detector only on
+    every Nth frame: det_best has ceil(B / det_stride) entries. pose_stride
+    > 1 crops and runs SPIN only on every Nth frame and slerps the others
+    (make_pose_core); B must then be a multiple of pose_stride. Scores cover
+    every frame.
+
+    fused_resample=True takes the letterbox AND the crop from one launch of
+    K2, which reads only every g-th frame, g = gcd(det_stride, pose_stride),
+    letterboxing every (det_stride/g)-th and cropping every
+    (pose_stride/g)-th of those. Without it the letterbox (K2's
+    letterbox-only mode on the card) and the crop (K1) run apart.
+    """
+    from poserisk_release_tpu_torch.models.detector import yolo_forward
+    from poserisk_release_tpu_torch.ops.crop import (
+        crop_batch,
+        letterbox_device,
+        letterbox_device_rect,
+    )
+    from poserisk_release_tpu_torch.ops.resample import fused_letterbox_crop
+
+    if det_stride < 1 or pose_stride < 1:
+        raise ValueError(f"strides must be >= 1, got det {det_stride}, pose {pose_stride}")
+    pose_step = make_pose_and_score_step(parents, pose_stride=pose_stride)
+
+    def step(yolo_m, spin_model, smpl_params, frames, bboxes, info_reba, info_rula):
+        if pose_stride > 1 and frames.shape[0] % pose_stride:
+            raise ValueError(
+                f"batch {frames.shape[0]} is not a multiple of pose_stride {pose_stride}")
+        with torch.inference_mode():
+            if fused_resample:
+                g = math.gcd(det_stride, pose_stride)
+                letter, crops = fused_letterbox_crop(
+                    frames, bboxes, img_size, 224, 1.2, out_dtype=compute_dtype,
+                    det_stride=det_stride // g, crop_stride=pose_stride // g,
+                    frame_stride=g, rect=rect)
+            else:
+                letterbox = letterbox_device_rect if rect else letterbox_device
+                letter = letterbox(frames[::det_stride], img_size, out_dtype=compute_dtype)
+                crops = crop_batch(frames[::pose_stride].contiguous(), bboxes[::pose_stride],
+                                   scale=1.2, out_size=224, out_dtype=compute_dtype)
+            det = yolo_forward(yolo_m, letter)
+            det_best = det[..., 4].max(dim=1).values
+            reba, rula, _euler, _jc = pose_step(spin_model, smpl_params, crops,
+                                                info_reba, info_rula)
+        return reba, rula, det_best
+
+    if yolo_model is None:
+        return step
+
+    def bound(spin_model, smpl_params, frames, bboxes, info_reba, info_rula):
+        return step(yolo_model, spin_model, smpl_params, frames, bboxes, info_reba, info_rula)
+
+    return bound
+
+
+def default_packed_infos() -> Tuple[np.ndarray, np.ndarray]:
+    """The packaged default_information.json, packed for the REBA and RULA
+    score functions (int32 vectors)."""
+    import json
+    import os.path as osp
+
+    from poserisk_release_tpu_torch.scoring import reba as reba_mod
+    from poserisk_release_tpu_torch.scoring import rula as rula_mod
+
+    path = osp.join(osp.dirname(__file__), "default_information.json")
+    with open(path) as f:
+        info = json.load(f)
+    return reba_mod.pack_info(info), rula_mod.pack_info(info)

@@ -37,7 +37,8 @@ def _port_modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
-    assert "poserisk_release_tpu_torch.ops.resample" in mods
+    for mod in ("ops.resample", "ops.skin", "ops.lbs", "models.detector", "throughput"):
+        assert f"poserisk_release_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -88,22 +89,70 @@ def test_predictor_and_cli_without_device_raise_when_cuda_absent(no_cuda, tmp_pa
 
 @pytest.mark.parametrize("argv", [
     ["--spin_int8"], ["--fast_detector"], ["--tp", "2"], ["--num_devices", "2"],
-    ["--streaming"], ["--debug_frame", "3"], ["--calibration", "x.npz"],
+    ["--streaming"], ["--recalibrate_per_video"], ["--calibration", "x.npz"],
 ])
 def test_cli_rejects_later_slice_flags(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["--cpu"] + argv)
     assert exc.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP" in err
+    if argv == ["--fast_detector"]:  # rect + int8: the int8 detector alone is missing
+        assert "item 14" in err and "item 10" not in err
 
 
-def test_debug_frame_and_detector_weights_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="K4"):
-        Predictor(debug=True, debug_frame=0, device="cpu")
-    weights = tmp_path / "yolov3.weights"
-    weights.write_bytes(b"\0")
-    cfg = default_config().replace(DETECTOR={"weights": str(weights)})
+def test_cli_accepts_debug_frame(monkeypatch, tmp_path):
+    """--debug_frame is in the port now: it reaches the Predictor."""
+    from poserisk_release_tpu_torch import pipeline
+
+    seen = {}
+
+    class FakePredictor:
+        def __init__(self, **kwargs):
+            seen.update(kwargs)
+            self.timings = {}
+
+        def __call__(self, video, info, out):
+            seen["called"] = (video, out)
+
+    monkeypatch.setattr(pipeline, "Predictor", FakePredictor)
+    video = str(tmp_path / "clip.mp4")
+    assert cli.main(["--cpu", "--debug", "--debug_frame", "3", "--input", video,
+                     "--output", str(tmp_path / "out")]) == 0
+    assert seen["debug_frame"] == 3 and seen["debug"] and seen["device"] == "cpu"
+    assert seen["called"] == (video, str(tmp_path / "out"))
+
+
+def test_debug_frame_and_detector_weights_raise(tmp_path, monkeypatch):
+    """What raised before the detector and mesh slice now runs: detector
+    weights give the YOLOv3 detector with the config's settings, and a
+    Predictor takes debug_frame. The int8 detector still raises, before any
+    weights are read."""
+    from poserisk_release_tpu_torch.models import detector
     from poserisk_release_tpu_torch.pipeline import build_detector
 
-    with pytest.raises(NotImplementedError, match="YOLOv3"):
-        build_detector(cfg)
+    weights = tmp_path / "yolov3.weights"
+    weights.write_bytes(b"\0")
+    cfg = default_config().replace(DETECTOR={
+        "weights": str(weights), "img_size": 320, "detection_threshold": 0.3,
+        "nms_threshold": 0.5, "batch_size": 4, "rect_letterbox": True,
+        "max_device_dets": 32})
+    with pytest.raises(NotImplementedError, match="item 14"):
+        build_detector(cfg.replace(DETECTOR={"int8": True}), "cpu")
+
+    loaded = []
+
+    def fake_load(path):
+        loaded.append(path)
+        return detector.init_yolo_params(0)
+
+    monkeypatch.setattr(detector, "load_darknet_weights", fake_load)
+    det = build_detector(cfg, "cpu")
+    assert loaded == [str(weights)]
+    assert isinstance(det, detector.YoloDetector) and det.model.folded
+    assert (det.img_size, det.detection_threshold, det.nms_threshold, det.batch_size,
+            det.rect, det.max_device_dets, det.device.type) == (
+        320, 0.3, 0.5, 4, True, 32, "cpu")
+
+    pred = Predictor(debug=True, debug_frame=0, device="cpu", detector=detector.StubDetector())
+    assert pred.debug_frame == 0

@@ -175,3 +175,49 @@ def test_cli_writes_the_same_files(runs, clip):
                      "--debug_joints", "Neck,L_Hip", "--no_visualize"]) == 0
     for name in OUTPUT_FILES:
         assert filecmp.cmp(clip / "jax" / name, out / name, shallow=False), name
+
+
+def _read_obj(path):
+    verts, faces = [], []
+    for line in open(path):
+        tag, *vals = line.split()
+        (verts if tag == "v" else faces).append(vals)
+    return np.asarray(verts, np.float64), faces
+
+
+def test_debug_frame_writes_the_jax_mesh(runs, clip):
+    """--debug_frame: both Predictors stop after the pose step and write the
+    debug frame's SMPL mesh (vertices in mm) and 3D skeleton figure. The
+    meshes agree within 1e-3 mm: the two packages' axis-angles differ by
+    float rounding only (tests/test_torch_pose.py), and the body is ~1 m."""
+    jax_pred, port_pred, _ = runs
+    video, info = str(clip / "input.mp4"), str(clip / "info.json")
+    outs = {}
+    for name, pred in (("jax", jax_pred), ("torch", port_pred)):
+        pred.debug_frame = 5
+        try:
+            assert pred(video, info, str(clip / f"{name}_debug_frame")) is None
+        finally:
+            pred.debug_frame = -1
+        outs[name] = clip / f"{name}_debug_frame" / "debug"
+    want_v, want_f = _read_obj(outs["jax"] / "smpl_model.obj")
+    got_v, got_f = _read_obj(outs["torch"] / "smpl_model.obj")
+    assert got_v.shape == want_v.shape == (6890, 3) and got_f == want_f
+    assert float(np.abs(got_v - want_v).max()) <= 1e-3
+    assert osp.getsize(outs["torch"] / "joint_3d.png") > 0
+
+
+def test_debug_frame_outside_the_track_raises_like_jax(runs, tmp_path):
+    jax_pred, port_pred, _ = runs
+    frames = np.arange(3, 20)
+    aa = np.zeros((len(frames), 24, 3), np.float32)
+    messages = []
+    for pred in (jax_pred, port_pred):
+        pred.debug_frame = 40
+        try:
+            with pytest.raises(ValueError, match="not among the selected track") as exc:
+                pred._visualize_joint_cam_mesh(aa, aa, frames, str(tmp_path))
+        finally:
+            pred.debug_frame = -1
+        messages.append(str(exc.value))
+    assert messages[0] == messages[1]
