@@ -22,7 +22,21 @@ counter set to 0 just before it and read just after:
   64-frame chunks: strict f32 at strides 1/1 and fast bf16 at strides 8/8,
   both through the fused letterbox + crop kernel, each held against the
   unfused step;
-* the --debug_frame mesh: Predictor._save_debug_mesh (LBS on the card).
+* the --debug_frame mesh: Predictor._save_debug_mesh (LBS on the card);
+* the int8 detector path (--fast_detector): YoloDetector(int8=True,
+  rect=True) calibrated explicitly on the first 64 frames, then under
+  MultiPersonTracker; its int8 heads and kept boxes are held against the
+  port's CPU int8 path on 2 frames;
+* the pose path fast with the int8 SPIN backbone (--spin_int8), held
+  against the CPU int8 path on 4 frames (same quantized backbone);
+* the full-frame step fast at strides 8/8 with the int8 detector and the
+  int8 backbone (the JAX bench's production configuration), through K2,
+  held against the unfused step;
+* the experiment paths of K5 (tools/exp_fused_stage: the fused int8
+  residual stage against its plain version and the per-conv int8 chain, at
+  the three stage shapes) and K3 with K1m (tools/exp_window_crop: the
+  windowed crop against its plain version and K1, windows 384 and 512; K1
+  with 2 and 4 frames per block against the plain crop).
 
 The Predictor's own video decode needs opencv and its plots matplotlib,
 which the card's machine need not have, so frames are made with numpy and
@@ -38,7 +52,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -52,27 +65,13 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor-core f32
 N_FRAMES, FRAME_HW, CHUNK, OUT = 128, (450, 800), 64, 224
 
 
-def time_ms(fn, reps: int = 20, per_rep: int = 10, warmup: int = 5) -> float:
-    """Device milliseconds of one fn() call: the median over `reps` samples,
-    each a CUDA-event pair around `per_rep` back-to-back calls, after
-    `warmup` calls. Before each sample the card sleeps ~2 ms, so the host
-    enqueues the timed calls while it is busy and they then run back to
-    back: the sample holds device time, not the host's launch overhead."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(4_000_000)
-        start.record()
-        for _ in range(per_rep):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_rep)
-    return statistics.median(times)
+def time_ms(fn, **kw) -> float:
+    """Device milliseconds of one fn() call on the card: the port's
+    tools/timing.time_ms (median of CUDA-event samples, each enqueued while
+    the card sleeps, so it holds device time and not launch overhead)."""
+    from poserisk_release_tpu_torch.tools.timing import time_ms as device_time_ms
+
+    return device_time_ms(fn, "cuda", **kw)
 
 
 def sync(device) -> None:
@@ -98,11 +97,18 @@ def elapsed_ms(fn, device) -> float:
 
 
 def reset_launch_counts() -> None:
-    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda, fused_letterbox_crop_cuda
+    from poserisk_release_tpu_torch.ops.resample import (
+        crop_batch_cuda,
+        crop_batch_multi_cuda,
+        crop_batch_windowed_cuda,
+        fused_letterbox_crop_cuda,
+    )
     from poserisk_release_tpu_torch.ops.skin import skin_vertices_cuda
+    from poserisk_release_tpu_torch.ops.yolo_stage import fused_residual_stage_cuda
 
     crop_batch_cuda.launches = fused_letterbox_crop_cuda.launches = 0
-    skin_vertices_cuda.launches = 0
+    skin_vertices_cuda.launches = crop_batch_windowed_cuda.launches = 0
+    fused_residual_stage_cuda.launches = crop_batch_multi_cuda.launches = 0
 
 
 def nvidia_smi_line() -> str:
@@ -143,6 +149,19 @@ def crop_bytes(bboxes: np.ndarray, H: int, W: int, out_bytes: int) -> int:
     return total
 
 
+def crop_row(name, replaces, launches, err, ms, plain_ms, n_bytes, library_ms) -> dict:
+    """A crop kernel's entry of the kernels line (f32 output, B = CHUNK):
+    the bound is the larger of n_bytes over the memory rate and ~10 f32
+    operations per output value over the f32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = CHUNK * OUT * OUT * 3 * 10 / FP32_FLOPS_PER_S
+    return {"name": name, "route": "cuda", "source": "poserisk_release_tpu_torch/csrc/crop.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
 def check_inputs(device, seed):
     """CHUNK seeded noise frames of FRAME_HW and their boxes: the edge boxes
     (centred, small off-centre, straddling the right/bottom border, partly
@@ -158,11 +177,28 @@ def check_inputs(device, seed):
     return frames, torch.as_tensor(np.concatenate([edge, rand]), device=device)
 
 
+def grid_sample_crop(f: torch.Tensor, bb: torch.Tensor):
+    """Yardstick only (the port never calls it): a call of F.grid_sample
+    computing the f32 bbox crop of (B, H, W, 3) uint8 frames with the same
+    sampling (align_corners=True maps -1/+1 to pixel centres 0 and size-1,
+    zero padding), on frames already converted to float NCHW."""
+    import torch.nn.functional as F
+
+    from poserisk_release_tpu_torch.ops.crop import crop_coords
+
+    H, W = f.shape[1:3]
+    ys, xs = crop_coords(bb, 1.2, OUT)
+    grid = torch.stack([
+        (2.0 * xs / (W - 1) - 1.0)[:, None, :].expand(-1, OUT, -1),
+        (2.0 * ys / (H - 1) - 1.0)[:, :, None].expand(-1, -1, OUT)], dim=-1)
+    f_nchw = f.permute(0, 3, 1, 2).float() / 255.0
+    return lambda: F.grid_sample(f_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+
 def check_crop_kernel(device, main_frames, main_bboxes) -> dict:
     """K1 against its plain version on the card, then timings at the main
     path's shapes (one 64-frame chunk of tracked 450x800 frames)."""
-    import torch.nn.functional as F
-
     from poserisk_release_tpu_torch.ops.crop import crop_batch_plain
     from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
 
@@ -188,43 +224,25 @@ def check_crop_kernel(device, main_frames, main_bboxes) -> dict:
     ms = time_ms(lambda: crop_batch_cuda(f, bb))
     ms16 = time_ms(lambda: crop_batch_cuda(f, bb, out_dtype=torch.bfloat16))
     plain_ms = time_ms(lambda: crop_batch_plain(f, bb))
-    # Yardstick only (the port never calls it): grid_sample with the same
-    # sampling (align_corners=True maps -1/+1 to pixel centres 0 and size-1,
-    # zero padding) on frames already converted to float NCHW.
-    from poserisk_release_tpu_torch.ops.crop import crop_coords
-
-    ys, xs = crop_coords(bb, 1.2, OUT)
-    grid = torch.stack([
-        (2.0 * xs / (W - 1) - 1.0)[:, None, :].expand(-1, OUT, -1),
-        (2.0 * ys / (H - 1) - 1.0)[:, :, None].expand(-1, -1, OUT)], dim=-1)
-    f_nchw = f.permute(0, 3, 1, 2).float() / 255.0
-
-    def library():
-        return F.grid_sample(f_nchw, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=True)
-
+    library = grid_sample_crop(f, bb)
     lib_err = float((library().permute(0, 2, 3, 1) - crop_batch_cuda(f, bb)).abs().max())
     library_ms = time_ms(library)
     n_bytes = crop_bytes(main_bboxes[:CHUNK], H, W, 4)
-    n_flops = CHUNK * OUT * OUT * 3 * 10
-    bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S) * 1e3
-    row = {"name": "crop_batch_cuda", "route": "cuda",
-           "source": "poserisk_release_tpu_torch/csrc/crop.cu",
-           "replaces": "poserisk_release_tpu/ops/resample_pallas.py:426",
-           "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_flops / FP32_FLOPS_PER_S
-           else "operations",
-           "library_ms": library_ms}
+    # launches: the main path's count, filled in by main().
+    row = crop_row("crop_batch_cuda", "poserisk_release_tpu/ops/resample_pallas.py:426", None,
+                   err32, ms, plain_ms, n_bytes, library_ms)
     print(json.dumps({"phase": "crop_timing", "shape": [CHUNK, H, W, 3],
                       "bytes": n_bytes, "ms_f32": ms, "ms_bf16": ms16,
                       "plain_ms": plain_ms, "library_ms": library_ms,
-                      "library_max_abs_err": lib_err, "bound_ms": bound_ms}))
+                      "library_max_abs_err": lib_err, "bound_ms": row["bound_ms"]}))
     return row
 
 
-def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None):
+def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None,
+              spin_int8: bool = False):
     """Drive the pose path once; returns (K1 launches, axis-angles, tracked
-    frame ids)."""
+    frame ids, the estimator). With spin_int8 the estimator calibrates its
+    int8 backbone on the warm-up call's first 8 crops."""
     from poserisk_release_tpu_torch.models.detector import StubDetector
     from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
     from poserisk_release_tpu_torch.outputs.stats import post_process_scores, write_result_txt
@@ -233,7 +251,8 @@ def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None):
     from poserisk_release_tpu_torch.scoring.rula import RULAScorer
     from poserisk_release_tpu_torch.tracking.mpt import MultiPersonTracker, filter_and_select_target
 
-    est = PoseEstimator(cfg, smpl, variables=variables, fast=fast, device=device)
+    est = PoseEstimator(cfg, smpl, variables=variables, fast=fast, spin_int8=spin_int8,
+                        device=device)
     est.run_from_frames(frames, np.arange(CHUNK), np.tile([[400.0, 225.0, 400.0, 400.0]],
                                                            (CHUNK, 1)))  # warm-up
     sync(device)
@@ -280,28 +299,43 @@ def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None):
     bb = torch.as_tensor(np.asarray(bboxes[:CHUNK], np.float32), device=device)
     with torch.inference_mode():
         crops = crop_batch(f, bb, out_dtype=torch.bfloat16 if fast else torch.float32)
+        if spin_int8:
+            from poserisk_release_tpu_torch.models.spin import hmr_forward_quant
+
+            def hmr():
+                return hmr_forward_quant(est._quant_backbone, est.model, crops, crops.dtype)
+        else:
+            def hmr():
+                return est.model(crops)
+
         chunk_ms = {"crop": time_ms(lambda: crop_batch(f, bb, out_dtype=crops.dtype)),
-                    "hmr": time_ms(lambda: est.model(crops), per_rep=2),
+                    "hmr": time_ms(hmr, per_rep=2),
                     "pose_step": time_ms(lambda: est._pose_step_from_frames(f, bb), per_rep=2)}
     chunk_ms["rotations+joints"] = chunk_ms["pose_step"] - chunk_ms["hmr"] - chunk_ms["crop"]
-    line = {"phase": "main_path_fast" if fast else "main_path_strict",
+    line = {"phase": ("main_path_fast" if fast else "main_path_strict")
+            + ("_spin_int8" if spin_int8 else ""),
             "frames": len(frames), "tracked": n, "crop_launches": launches,
             "pose_frames_per_s": n / t["pose"], "stage_s": t, "chunk_ms": chunk_ms,
             "reba_mode": int(np.bincount(scores["REBA"]).argmax()),
             "rula_mode": int(np.bincount(scores["RULA"]).argmax())}
     if cpu_ref is not None:
-        ref_euler, ref_joints = cpu_ref(bboxes, track_frames)
+        ref_euler, ref_joints = cpu_ref(bboxes, track_frames, est)
         k = ref_euler.shape[0]
         d_e = np.abs(euler[:k] - ref_euler)
         d_e = float(np.minimum(d_e, 360.0 - d_e).max())
         d_j = float(np.abs(joint_cam[:k] - ref_joints).max())
-        line.update(cpu_ref_frames=k, euler_max_abs_diff_deg=d_e, joint_max_abs_diff_mm=d_j)
-        if not (d_e < 0.05 and d_j < 0.05):
-            raise AssertionError(f"card vs CPU path: euler {d_e} deg, joints {d_j} mm")
+        same = all([r["score"] for r in scorer(euler[:k], None, info)]
+                   == [r["score"] for r in scorer(ref_euler, None, info)]
+                   for scorer in (REBAScorer(device="cpu"), RULAScorer(device="cpu")))
+        line.update(cpu_ref_frames=k, euler_max_abs_diff_deg=d_e, joint_max_abs_diff_mm=d_j,
+                    cpu_ref_scores_equal=same)
+        if not (d_e < 0.05 and d_j < 0.05 and same):
+            raise AssertionError(
+                f"card vs CPU path: euler {d_e} deg, joints {d_j} mm, scores equal {same}")
     print(json.dumps(line))
     if launches <= 0:
         raise AssertionError("the main path launched no crop kernel")
-    return launches, aa, track_frames
+    return launches, aa, track_frames, est
 
 
 STRIDE_TRIPLES = [(1, 1, 1), (2, 2, 1), (4, 1, 1), (2, 1, 2), (1, 4, 1), (1, 1, 8), (1, 2, 4),
@@ -493,10 +527,12 @@ def detector_path(device, frames):
     return launches, sd
 
 
-def full_frame(device, frames, bboxes, yolo_sd, variables, smpl, cfg, fast: bool) -> int:
+def full_frame(device, frames, bboxes, yolo_sd, variables, smpl, cfg, fast: bool,
+               quant_backbone=None) -> int:
     """make_full_frame_step over all frames in CHUNK-frame chunks through
     K2 (fused), held against the unfused step; strict f32 at strides 1/1 or
-    fast bf16 at 8/8. Returns K2's launches."""
+    fast bf16 at 8/8. A quantized yolo_sd with a prepared quant_backbone is
+    the int8 configuration (fast, 8/8). Returns K2's launches."""
     from poserisk_release_tpu_torch.models.detector import YoloV3, yolo_forward
     from poserisk_release_tpu_torch.ops.resample import fused_letterbox_crop, fused_letterbox_crop_cuda
     from poserisk_release_tpu_torch.pipeline import PoseEstimator
@@ -510,12 +546,15 @@ def full_frame(device, frames, bboxes, yolo_sd, variables, smpl, cfg, fast: bool
 
     dtype, stride = (torch.bfloat16, 8) if fast else (torch.float32, 1)
     est = PoseEstimator(cfg, smpl, variables=variables, fast=fast, device=device)
-    yolo = YoloV3.from_state_dict(yolo_sd).to(device, dtype, memory_format=torch.channels_last)
+    yolo = YoloV3.from_state_dict(yolo_sd)
+    # A quantized tower is built in its compute dtype (bf16): move it only.
+    yolo = (yolo.to(device, memory_format=torch.channels_last) if yolo.quantized
+            else yolo.to(device, dtype, memory_format=torch.channels_last))
     ir, iu = (torch.as_tensor(a, device=device) for a in default_packed_infos())
     f_dev = torch.as_tensor(frames, device=device)
     b_dev = torch.as_tensor(np.asarray(bboxes, np.float32), device=device)
     kw = dict(yolo_model=yolo, img_size=416, compute_dtype=dtype, rect=True,
-              det_stride=stride, pose_stride=stride)
+              det_stride=stride, pose_stride=stride, quant_backbone=quant_backbone)
     fused = make_full_frame_step(est.parents, fused_resample=True, **kw)
     unfused = make_full_frame_step(est.parents, **kw)
 
@@ -538,7 +577,7 @@ def full_frame(device, frames, bboxes, yolo_sd, variables, smpl, cfg, fast: bool
     # Equal strides: the step's kernel reads every stride-th frame and both
     # outputs cover each frame it reads.
     f0, b0 = f_dev[:CHUNK], b_dev[:CHUNK]
-    core = make_pose_core(est.parents, pose_stride=stride)
+    core = make_pose_core(est.parents, pose_stride=stride, quant_backbone=quant_backbone)
 
     def resample():
         return fused_letterbox_crop(f0, b0, out_dtype=dtype, frame_stride=stride)
@@ -554,7 +593,8 @@ def full_frame(device, frames, bboxes, yolo_sd, variables, smpl, cfg, fast: bool
             "score": time_ms(lambda: (reba_frame_scores(euler, ir), rula_frame_scores(euler, iu)),
                              reps=5, per_rep=2, warmup=2)}
     print(json.dumps({
-        "phase": "full_frame_fast" if fast else "full_frame_strict", "frames": len(frames),
+        "phase": ("full_frame_fast" if fast else "full_frame_strict")
+        + ("_int8" if yolo.quantized else ""), "frames": len(frames),
         "chunk": CHUNK, "det_stride": stride, "pose_stride": stride, "dtype": str(dtype),
         "detector_frames_per_chunk": letter.shape[0], "k2_launches": launches,
         "device_ms": dev_ms, "frames_per_s": len(frames) / dev_ms * 1e3, "chunk_ms": chunk_ms,
@@ -662,6 +702,223 @@ def debug_mesh(device, cfg, smpl, variables, aa, track_frames) -> dict:
     return row
 
 
+def int8_detector_path(device, frames):
+    """--fast_detector: YoloDetector(int8=True, rect=True) on the seed-0
+    init, calibrated explicitly on the first CHUNK frames; its int8 heads
+    and kept boxes against the port's CPU int8 path on 2 frames (the same
+    quantized weights), then the detector path under MultiPersonTracker over
+    all frames. Returns (K2 launches, the quantized state_dict)."""
+    from poserisk_release_tpu_torch.models.detector import (
+        YoloDetector,
+        YoloV3,
+        fold_bn_params,
+        init_yolo_params,
+        yolo_forward,
+    )
+    from poserisk_release_tpu_torch.ops.resample import fused_letterbox_crop_cuda
+    from poserisk_release_tpu_torch.tracking.mpt import MultiPersonTracker
+
+    sd = fold_bn_params(init_yolo_params(0))
+    det = YoloDetector(params=sd, device=device, batch_size=CHUNK, rect=True, int8=True)
+    det.calibrate(frames[:CHUNK])
+    if det.needs_calibration or not det.model.quantized:
+        raise AssertionError("calibrate() left the detector unquantized")
+    cpu_det = YoloDetector(params=det.params, device="cpu", batch_size=2, rect=True, int8=True)
+    two = frames[:2]
+    # Every int8 conv is exact on both sides and every bf16 elementwise op
+    # rounds alike, so the heads differ only through the three float bf16
+    # head convs (cuDNN's sums against the CPU's, each rounded to bf16
+    # once): held to 2**-7 of each head's largest magnitude (2 bf16 ulp).
+    with torch.no_grad():
+        heads = [h.float() for h, _ in det.model.heads(det.letterbox(
+            torch.as_tensor(two, device=device)).permute(0, 3, 1, 2).to(torch.bfloat16))]
+        ref = [h.float() for h, _ in cpu_det.model.heads(cpu_det.letterbox(
+            torch.as_tensor(two)).permute(0, 3, 1, 2).to(torch.bfloat16))]
+    head_rel = max(float((h.cpu() - r).abs().max() / r.abs().max()) for h, r in zip(heads, ref))
+    got, want = det(two), cpu_det(two)
+    if [g.shape for g in got] != [w.shape for w in want]:
+        raise AssertionError(f"int8 kept boxes differ in number: {got} vs {want}")
+    box_err = max([float(np.abs(g - w).max()) for g, w in zip(got, want) if g.size] + [0.0])
+    if not (head_rel <= 2.0 ** -7 and box_err <= 0.5):
+        raise AssertionError(f"int8 detector card vs CPU: heads {head_rel}, boxes {box_err} px")
+
+    det(frames[:CHUNK])  # warm-up
+    sync(device)
+    counting = CountingDetector(det)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tracks = MultiPersonTracker(counting).track_windows(
+        (s, frames[s:s + CHUNK]) for s in range(0, len(frames), CHUNK))
+    seconds = time.perf_counter() - t0
+    launches = fused_letterbox_crop_cuda.launches
+    letter = det.letterbox(torch.as_tensor(frames[:CHUNK], device=device))
+    int8_ms = time_ms(lambda: yolo_forward(det.model, letter), reps=5, per_rep=1, warmup=2)
+    float_model = YoloV3.from_state_dict(sd).to(device, memory_format=torch.channels_last)
+    float_ms = time_ms(lambda: yolo_forward(float_model, letter), reps=5, per_rep=1, warmup=2)
+    bf16_model = YoloV3.from_state_dict(sd).to(device, torch.bfloat16,
+                                               memory_format=torch.channels_last)
+    bf16_ms = time_ms(lambda: yolo_forward(bf16_model, letter), reps=5, per_rep=1, warmup=2)
+    counts = np.asarray(counting.counts)
+    print(json.dumps({
+        "phase": "int8_detector_path", "frames": len(frames), "canvas": list(letter.shape[1:3]),
+        "k2_launches": launches, "track_s": seconds, "frames_per_s": len(frames) / seconds,
+        "yolo_chunk_ms": {"int8": int8_ms, "bf16": bf16_ms, "f32": float_ms},
+        "quantized_convs": sum(k.endswith(".qkernel") for k in det.params),
+        "detections_per_frame": {"mean": float(counts.mean()), "min": int(counts.min()),
+                                 "max": int(counts.max())},
+        "tracks": len(tracks), "cpu_ref_frames": 2, "head_max_rel_err": head_rel,
+        "box_max_abs_err_px": box_err}))
+    if len(counts) != len(frames):
+        raise AssertionError(f"detections for {len(counts)} of {len(frames)} frames")
+    if launches <= 0:
+        raise AssertionError("the int8 detector path launched no letterbox kernel")
+    return launches, det.params
+
+
+def stage_check(device, frames) -> dict:
+    """K5 through its experiment tool (tools/exp_fused_stage.stage_ab) at
+    the three stage shapes, B = CHUNK, bf16 input, the quantized params of
+    the seed-0 detector calibrated on the smoke's frames: the kernel
+    against its plain version (target 0) and the A/B against the per-conv
+    int8 chain (torch._int_mm), which is the row's library_ms."""
+    from poserisk_release_tpu_torch.ops.yolo_stage import fused_residual_stage_cuda
+    from poserisk_release_tpu_torch.tools.exp_fused_stage import calibrated_qparams, stage_ab
+
+    qparams = calibrated_qparams(frames[:8], device)
+    reset_launch_counts()
+    rows = stage_ab(qparams, device, batch=CHUNK)
+    all_launches = fused_residual_stage_cuda.launches
+    # The kernels line counts the tool's one pass (its checked call per
+    # stage, two launches per block), not its timing loops.
+    launches = sum(r["launches"] for r in rows)
+    print(json.dumps({"phase": "stage_check", "k5_launches_one_pass": launches,
+                      "k5_launches_with_timing": all_launches, "stages": rows}))
+    err = max(r["max_abs_err"] for r in rows)
+    if err != 0.0:
+        raise AssertionError(f"fused stage kernel disagrees with its plain version: {rows}")
+    if not (all(r["launches"] == 2 * r["blocks"] for r in rows) and all_launches >= launches):
+        raise AssertionError(f"the fused stage tool did not launch the stage kernel: {rows}")
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
+    return {"name": "fused_residual_stage_cuda", "route": "cuda",
+            "source": "poserisk_release_tpu_torch/csrc/yolo_stage.cu",
+            "replaces": "poserisk_release_tpu/ops/yolo_stage_pallas.py:147",
+            "launches": launches, "max_abs_err": err, "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": "operations", "library_ms": total["chain_ms"]}
+
+
+def window_crop_bytes(bboxes: np.ndarray, H: int, W: int, window: int, out_bytes: int) -> int:
+    """crop_bytes with K3's window: per frame, each source pixel that a
+    nonzero tap inside the window reads, read once; each output written once."""
+    from poserisk_release_tpu_torch.ops.crop import (
+        WINDOW_CHUNK,
+        axis_taps,
+        crop_coords,
+        window_blocks,
+    )
+
+    bb = torch.as_tensor(bboxes, dtype=torch.float32)
+    ys, xs = crop_coords(bb, 1.2, OUT)
+    lo = window_blocks(bb, 1.2, window, W).to(torch.int64) * WINDOW_CHUNK
+    total = bboxes.shape[0] * OUT * OUT * 3 * out_bytes
+    for b in range(bboxes.shape[0]):
+        rows = _taps_read(*axis_taps(ys[b], H))
+        cols = {c for c in _taps_read(*axis_taps(xs[b], W)) if lo[b] <= c < lo[b] + window}
+        total += len(rows) * len(cols) * 3
+    return total
+
+
+def window_crop_check(device, main_frames):
+    """K3 against its plain version on the card (f32 bit-equal, bf16 within
+    4/255) at windows 384 and 512, and bit-equal to K1 on every frame whose
+    box crop_window_fits admits; K1m (2 and 4 frames per block) against the
+    plain crop (f32 bit-equal, bf16 within 4/255); then their experiment
+    tool (tools/exp_window_crop) on CHUNK of the smoke's frames with the
+    tool's tracked-person boxes. Returns the K3 and K1m rows."""
+    from poserisk_release_tpu_torch.ops.crop import crop_batch_plain, crop_batch_windowed_plain
+    from poserisk_release_tpu_torch.ops.resample import (
+        crop_batch_cuda,
+        crop_batch_multi_cuda,
+        crop_batch_windowed_cuda,
+    )
+    from poserisk_release_tpu_torch.tools.exp_window_crop import tool_boxes, window_crop_ab
+
+    f32 = torch.float32
+    frames, bboxes = check_inputs(device, seed=3)
+    errs = {}
+    for window in (384, 512):
+        got32 = crop_batch_windowed_cuda(frames, bboxes, window=window, out_dtype=f32)
+        got16 = crop_batch_windowed_cuda(frames, bboxes, window=window)
+        want = crop_batch_windowed_plain(frames, bboxes, window=window, out_dtype=f32)
+        full = crop_batch_cuda(frames, bboxes)
+        fits = (bboxes[:, 2] * 1.2 + 2.0 + 128 <= window).nonzero().flatten()
+        sync(device)
+        errs[window] = {"f32": float((got32 - want).abs().max()),
+                        "bf16_vs_f32": float((got16.float() - want).abs().max()),
+                        "vs_k1_where_fits": float((got32[fits] - full[fits]).abs().max()),
+                        "frames_fitting": int(fits.numel())}
+    want = crop_batch_plain(frames, bboxes)
+    multi_errs = {}
+    for fpb in (2, 4):
+        got32 = crop_batch_multi_cuda(frames, bboxes, fpb, out_dtype=f32)
+        got16 = crop_batch_multi_cuda(frames, bboxes, fpb)
+        sync(device)
+        multi_errs[fpb] = {"f32": float((got32 - want).abs().max()),
+                           "bf16_vs_f32": float((got16.float() - want).abs().max())}
+    print(json.dumps({"phase": "window_crop_check", "frames": list(frames.shape), "errs": errs,
+                      "frames_per_block_errs": multi_errs}))
+    for e in errs.values():
+        if not (e["f32"] == 0.0 and e["vs_k1_where_fits"] == 0.0 and e["frames_fitting"] > 0):
+            raise AssertionError(f"windowed crop kernel disagrees: {errs}")
+        if not e["bf16_vs_f32"] <= 4.0 / 255.0:
+            raise AssertionError(f"windowed crop kernel bf16 off by more than 4/255: {errs}")
+    for e in multi_errs.values():
+        if not (e["f32"] == 0.0 and e["bf16_vs_f32"] <= 4.0 / 255.0):
+            raise AssertionError(f"multi-frame crop kernel disagrees: {multi_errs}")
+
+    f = torch.as_tensor(main_frames[:CHUNK], device=device)
+    boxes, narrow = (torch.as_tensor(b, device=device)
+                     for b in tool_boxes(np.random.RandomState(0), CHUNK))
+    reset_launch_counts()
+    rows = window_crop_ab(f, boxes, narrow)
+    k3_all, k1m_all = crop_batch_windowed_cuda.launches, crop_batch_multi_cuda.launches
+    # The kernels line counts the tool's one pass (each row's checked call),
+    # not its timing loops.
+    k3_launches = sum(r["launches"] for n, r in rows.items() if n.startswith("K3"))
+    k1m_launches = sum(r["launches"] for n, r in rows.items() if "frames/block" in n)
+    # The rows of the kernels line: f32 on the tool's inputs, as K1's row is
+    # f32 (window 512 for K3, 2 frames per block for K1m; these calls come
+    # after the counts were read).
+    ms = time_ms(lambda: crop_batch_windowed_cuda(f, boxes, window=512, out_dtype=f32))
+    multi_ms = {fpb: time_ms(lambda fpb=fpb: crop_batch_multi_cuda(f, boxes, fpb, out_dtype=f32))
+                for fpb in (2, 4)}
+    k1_ms = time_ms(lambda: crop_batch_cuda(f, boxes, out_dtype=f32))
+    plain_ms = time_ms(lambda: crop_batch_windowed_plain(f, boxes, window=512, out_dtype=f32),
+                       reps=5, per_rep=2)
+    k1_plain_ms = time_ms(lambda: crop_batch_plain(f, boxes), reps=5, per_rep=2)
+    library_ms = time_ms(grid_sample_crop(f, boxes))
+    H, W = FRAME_HW
+    n_bytes = window_crop_bytes(boxes.cpu().numpy(), H, W, 512, 4)
+    k1_bytes = crop_bytes(boxes.cpu().numpy(), H, W, 4)
+    k3 = crop_row("crop_batch_windowed_cuda", "poserisk_release_tpu/ops/resample_pallas.py:336",
+                  k3_launches, max(e["f32"] for e in errs.values()), ms, plain_ms, n_bytes,
+                  library_ms)
+    k1m = crop_row("crop_batch_multi_cuda", "tools/exp_window_crop.py:70", k1m_launches,
+                   max(e["f32"] for e in multi_errs.values()), multi_ms[2], k1_plain_ms,
+                   k1_bytes, library_ms)
+    print(json.dumps({"phase": "window_crop_tool", "k3_launches_one_pass": k3_launches,
+                      "k1m_launches_one_pass": k1m_launches, "k3_launches_with_timing": k3_all,
+                      "k1m_launches_with_timing": k1m_all, "rows": rows,
+                      "f32": {"k3_win512_ms": ms, "k1m_ms": multi_ms, "k1_ms": k1_ms,
+                              "k3_plain_ms": plain_ms, "k1_plain_ms": k1_plain_ms,
+                              "library_ms": library_ms, "k3_bytes": n_bytes,
+                              "k1_bytes": k1_bytes, "k3_bound_ms": k3["bound_ms"],
+                              "k1m_bound_ms": k1m["bound_ms"]}}))
+    if not (k3_launches == 2 and k1m_launches == 2 and k3_all >= 2 and k1m_all >= 2):
+        raise AssertionError(f"the window crop tool did not launch K3 and K1m: {rows}")
+    return k3, k1m
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -683,7 +940,7 @@ def main() -> int:
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
 
     t0 = time.perf_counter()
-    sources = ["crop", "letterbox_crop", "skin"]
+    sources = ["crop", "letterbox_crop", "skin", "yolo_stage"]
     _build.build(sources)
     print(json.dumps({"phase": "build", "sources": [n + ".cu" for n in sources],
                       "seconds": time.perf_counter() - t0}))
@@ -704,14 +961,18 @@ def main() -> int:
     k1 = check_crop_kernel(device, frames, main_bboxes)
     k2 = check_letterbox_crop_kernel(device, frames, main_bboxes)
 
-    cpu_est = PoseEstimator(cfg, smpl, variables=variables, device="cpu")
-
-    def cpu_ref(bboxes, track_frames, k=4):
+    def cpu_ref(bboxes, track_frames, card_est, k=4):
+        """The port's CPU path on the first k tracked frames, in the card
+        estimator's configuration (and with its int8 backbone, if any)."""
+        cpu_est = PoseEstimator(cfg, smpl, variables=variables, fast=card_est.fast,
+                                device="cpu")
+        if card_est.quant_params is not None:
+            cpu_est.load_quant_backbone(card_est.quant_params)
         e, j, _ = cpu_est.run_from_frames(frames, track_frames[:k], bboxes[:k], chunk=k)
         return e, j
 
-    k1["launches"], aa, track_frames = main_path(device, frames, False, variables, smpl, cfg,
-                                                 cpu_ref)
+    k1["launches"], aa, track_frames, _ = main_path(device, frames, False, variables, smpl,
+                                                    cfg, cpu_ref)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("strict path left TF32 on")
     print(json.dumps({"phase": "tf32", "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
@@ -721,10 +982,23 @@ def main() -> int:
     k2_launches, yolo_sd = detector_path(device, frames)
     k2_launches += full_frame(device, frames, main_bboxes, yolo_sd, variables, smpl, cfg, False)
     k2_launches += full_frame(device, frames, main_bboxes, yolo_sd, variables, smpl, cfg, True)
-    k2["launches"] = k2_launches
     k4 = debug_mesh(device, cfg, smpl, variables, aa, track_frames)
 
-    print(json.dumps({"kernels": [k1, k2, k4]}))
+    # The int8 PTQ paths: --fast_detector, --spin_int8, and both in the
+    # full-frame step (fast, strides 8/8).
+    from poserisk_release_tpu_torch.models.resnet_int8 import prepare_resnet50
+
+    launches, q_yolo = int8_detector_path(device, frames)
+    k2_launches += launches
+    _, _, _, int8_est = main_path(device, frames, True, variables, smpl, cfg, cpu_ref,
+                                  spin_int8=True)
+    k2_launches += full_frame(device, frames, main_bboxes, q_yolo, variables, smpl, cfg, True,
+                              quant_backbone=prepare_resnet50(int8_est.quant_params, device))
+    k2["launches"] = k2_launches
+    k5 = stage_check(device, frames)
+    k3, k1m = window_crop_check(device, frames)
+
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k1m]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
     python -m poserisk_release_tpu_torch.cli --type REBA,RULA --input video.mp4 \
         --info additional_information.json --output out [--gpu 0] \
-        [--visualize] [--debug] [--debug_joints "Neck,L_Hip"] [--debug_frame N] [--cpu]
+        [--visualize] [--debug] [--debug_joints "Neck,L_Hip"] [--debug_frame N] [--cpu] \
+        [--fast] [--spin_int8] [--fast_detector] [--calibration frames.npy]
 
 Flags and defaults mirror the JAX package's cli.py (and the reference's
 main/run.py:10-20). `--gpu N` selects CUDA device N; `--cpu` runs on the
@@ -20,10 +21,6 @@ from poserisk_release_tpu_torch.config import default_config, load_yaml_config
 # flag -> (default, ROADMAP item): accepted by the parser for compatibility
 # with the JAX package's CLI, refused when set.
 LATER_SLICE_FLAGS = {
-    "spin_int8": (False, "Queue 1 item 14 (int8 PTQ)"),
-    "fast_detector": (False, "Queue 1 item 14 (int8 detector: --fast_detector is rect + int8)"),
-    "calibration": ("", "Queue 1 item 14 (int8 PTQ)"),
-    "recalibrate_per_video": (False, "Queue 1 item 14 (int8 PTQ)"),
     "num_devices": (0, "Queue 1 item 15 (torch.distributed mesh)"),
     "tp": (1, "Queue 1 item 15 (torch.distributed mesh)"),
     "sp": (1, "Queue 1 item 15 (torch.distributed mesh)"),
@@ -85,13 +82,22 @@ def build_parser() -> argparse.ArgumentParser:
                              "reference's coord_utils assert")
     parser.add_argument("--decode_workers", type=int, default=1,
                         help="video-decode threads (bit-identical frames)")
+    parser.add_argument("--spin_int8", action="store_true",
+                        help="int8 PTQ SPIN backbone (calibrated and bias-"
+                             "corrected on the first crops)")
+    parser.add_argument("--fast_detector", action="store_true",
+                        help="rect canvas + int8 PTQ YOLOv3 detector")
+    parser.add_argument("--calibration", type=str, default="",
+                        help="explicit int8 calibration source (video file, "
+                             "image directory or .npy/.npz of uint8 frames) "
+                             "for the --fast_detector / --spin_int8 paths")
+    parser.add_argument("--calibration_frames", type=int, default=64,
+                        help="frames drawn evenly from the calibration source")
+    parser.add_argument("--recalibrate_per_video", action="store_true",
+                        help="re-derive int8 scales at the start of every "
+                             "video (implicit calibration only)")
     # Later slices of the port: parsed so the JAX package's command lines
     # give a clear error instead of an unknown-flag failure.
-    parser.add_argument("--spin_int8", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--fast_detector", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--calibration", type=str, default="", help=argparse.SUPPRESS)
-    parser.add_argument("--calibration_frames", type=int, default=64, help=argparse.SUPPRESS)
-    parser.add_argument("--recalibrate_per_video", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--num_devices", type=int, default=0, help=argparse.SUPPRESS)
     for flag in ("tp", "sp", "pp", "ep"):
         parser.add_argument(f"--{flag}", type=int, default=1, help=argparse.SUPPRESS)
@@ -178,6 +184,8 @@ def main(argv=None) -> int:
     from poserisk_release_tpu_torch.pipeline import Predictor
 
     cfg = load_yaml_config(args.cfg) if args.cfg else default_config()
+    if args.fast_detector:
+        cfg = cfg.replace(DETECTOR={"rect_letterbox": True, "int8": True})
     if args.jpeg_ingest:
         cfg = cfg.replace(DATASET={"jpeg_ingest": True})
     if args.detection_stride != 1 or args.adaptive_stride:
@@ -189,6 +197,12 @@ def main(argv=None) -> int:
         cfg = cfg.replace(SPIN={"pose_stride": args.pose_stride})
     if args.decode_workers != 1:
         cfg = cfg.replace(DATASET={"decode_workers": args.decode_workers})
+    if args.calibration or args.recalibrate_per_video:
+        cfg = cfg.replace(DETECTOR={
+            "calibration": args.calibration,
+            "calibration_frames": args.calibration_frames,
+            "recalibrate_per_video": args.recalibrate_per_video,
+        })
 
     device = "cpu" if args.cpu else f"cuda:{args.gpu}"
     print("Work on device: ", device)
@@ -203,6 +217,7 @@ def main(argv=None) -> int:
         multi_person=args.multi_person,
         person_genders=parse_person_genders(args.person_genders),
         fast=args.fast,
+        spin_int8=args.spin_int8,
         validate_rotations=args.validate_rotations,
         device=device,
     )

@@ -9,9 +9,8 @@ ValueError, mirroring update_config at config.py:63-85).
 
 Own copy of the JAX package's config: the same keys and defaults, so one
 YAML override file configures either package. Fields that belong to later
-slices of the port (PARALLEL model axes, int8, detector strides and
-calibration) are accepted here and rejected by the entry points that do not
-run them yet.
+slices of the port (the PARALLEL model axes) are accepted here and rejected
+by the entry points that do not run them yet.
 """
 
 from __future__ import annotations
@@ -65,7 +64,8 @@ class SpinConfig:
     img_res: int = 224
     # Number of iterative-error-feedback refinement steps in the HMR head.
     ief_iters: int = 3
-    # Mixed-precision boundary of the int8 SPIN backbone (a later slice).
+    # Mixed-precision boundary of the int8 SPIN backbone: only residual
+    # stages >= this are quantized (the stem is stage 0).
     int8_min_stage: int = 0
     # Pose-stride throughput mode: run crop+SPIN only on every Nth tracked
     # frame and slerp the skipped frames' joint rotations between the
@@ -108,7 +108,8 @@ class DetectorConfig:
     # Rectangular detector canvas (ops/crop.rect_canvas_geometry): the
     # square letterbox's content on a canvas padded only to a multiple of 32.
     rect_letterbox: bool = False
-    # int8 post-training quantization of the conv tower (a later slice).
+    # int8 post-training quantization of the conv tower; only convs whose
+    # input sits at >= int8_min_downsample are quantized.
     int8: bool = False
     int8_min_downsample: int = 1
     # Device-side top-k detection pre-selection (YoloDetector._pull_detections;
@@ -124,7 +125,8 @@ class DetectorConfig:
     # interval. Requires detection_stride > 1.
     adaptive_stride: bool = False
     adaptive_tol: float = 0.2
-    # Explicit int8 calibration source and its lifecycle (a later slice).
+    # Explicit int8 calibration source (io/video.load_calibration_frames)
+    # and the per-video re-calibration of shared instances.
     calibration: str = ""
     calibration_frames: int = 64
     recalibrate_per_video: bool = False

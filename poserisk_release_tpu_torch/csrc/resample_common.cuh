@@ -1,5 +1,5 @@
-// Device helpers shared by the crop kernel (crop.cu, K1) and the fused
-// letterbox + crop kernel (letterbox_crop.cu, K2): the bbox crop's sample
+// Device helpers shared by the crop kernels (crop.cu: K1 and the windowed
+// K3) and the fused letterbox + crop kernel (letterbox_crop.cu, K2): the bbox crop's sample
 // position and taps, one crop output pixel, and the f32 / bf16 stores.
 //
 // Crop semantics (the plain version is ops/crop.py:crop_batch_plain):
@@ -61,18 +61,24 @@ __device__ __forceinline__ float bilinear(const uint8_t* frame, int W, const Tap
 }
 
 // One crop output pixel (oy, ox) of an S x S crop, all three channels,
-// written NHWC at out[0..2].
-template <typename OutT>
+// written NHWC at out[0..2]. kWindow (the windowed crop, K3) drops a column
+// tap whose (clamped) source column lies outside [win_lo, win_hi): the read
+// window of the TPU kernel crop_batch_pallas_windowed.
+template <typename OutT, bool kWindow = false>
 __device__ __forceinline__ void crop_pixel(const uint8_t* frame, const float* bbox, int H,
                                            int W, int S, float scale, int oy, int ox,
-                                           OutT* out) {
+                                           OutT* out, int win_lo = 0, int win_hi = 0) {
   const float half = 0.5f * (float)S;
   const float step_x = __fdiv_rn(__fmul_rn(bbox[2], scale), (float)S);
   const float step_y = __fdiv_rn(__fmul_rn(bbox[3], scale), (float)S);
   const float xs = __fadd_rn(__fmul_rn(__fsub_rn((float)ox, half), step_x), bbox[0]);
   const float ys = __fadd_rn(__fmul_rn(__fsub_rn((float)oy, half), step_y), bbox[1]);
   const Taps ty = crop_axis_taps(ys, H);
-  const Taps tx = crop_axis_taps(xs, W);
+  Taps tx = crop_axis_taps(xs, W);
+  if (kWindow) {
+    if (tx.i0 < win_lo || tx.i0 >= win_hi) tx.w0 = 0.0f;
+    if (tx.i1 < win_lo || tx.i1 >= win_hi) tx.w1 = 0.0f;
+  }
   const float inv255 = 1.0f / 255.0f;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {

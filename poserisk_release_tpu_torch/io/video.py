@@ -355,6 +355,61 @@ def read_video_parallel(
     return VideoClip(frames=np.concatenate(pieces), fps=fps)
 
 
+def _subsample(frames: np.ndarray, n: int) -> np.ndarray:
+    """At most n frames drawn evenly (first and last included)."""
+    if len(frames) <= n:
+        return frames
+    idx = np.linspace(0, len(frames) - 1, n).round().astype(np.int64)
+    return frames[idx]
+
+
+def load_calibration_frames(path: str, n: int = 64) -> np.ndarray:
+    """Representative frames for int8 PTQ calibration (DETECTOR.calibration):
+
+      * a .npy/.npz of (N, H, W, 3) uint8 RGB frames (the first array of an
+        npz), drawn evenly down to n;
+      * a directory of images (jpg/jpeg/png/bmp, sorted by name, the first
+        n), each resized by the reference rule so the canvas geometry
+        matches the detector's ingest;
+      * a video, decoded with the reference resize rule and drawn evenly
+        down to n.
+
+    Returns (n', H, W, 3) uint8 RGB. Raises on empty, float or unreadable
+    sources: a silent mis-calibration is worse than a crash."""
+    if path.endswith((".npy", ".npz")):
+        data = np.load(path)
+        frames = np.asarray(data[data.files[0]] if hasattr(data, "files") else data)
+        if frames.ndim != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"calibration array must be (N, H, W, 3), got {frames.shape}")
+        if frames.dtype != np.uint8:
+            # astype(uint8) on [0, 1] floats would truncate every pixel to 0
+            # and calibrate on black.
+            raise ValueError(
+                "calibration array must be uint8 RGB (0..255), got "
+                f"{frames.dtype}; convert explicitly (e.g. "
+                "np.clip(x*255, 0, 255).astype(np.uint8) for [0,1] floats)")
+        return _subsample(frames, n)
+    if osp.isdir(path):
+        import cv2
+
+        names = sorted(f for f in os.listdir(path)
+                       if f.lower().endswith((".jpg", ".jpeg", ".png", ".bmp")))[:n]
+        if not names:
+            raise ValueError(f"no images found in calibration dir: {path}")
+        frames = []
+        for name in names:
+            bgr = cv2.imread(osp.join(path, name))
+            if bgr is None:
+                raise ValueError(f"unreadable calibration image: {name}")
+            w, h = reference_resize_dims(bgr.shape[1], bgr.shape[0])
+            frames.append(_resize_rgb(bgr, w, h))
+        shapes = {f.shape for f in frames}
+        if len(shapes) > 1:
+            raise ValueError(f"calibration images resize to mixed shapes: {sorted(shapes)}")
+        return np.stack(frames)
+    return _subsample(read_video(path).frames, n)
+
+
 def dump_frames(clip: VideoClip, tmp_path: str) -> int:
     """Write the reference-format '%09d.jpg' frame tree (debug parity only)."""
     import cv2

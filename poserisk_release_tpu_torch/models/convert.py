@@ -224,29 +224,39 @@ def fold_bn_kernel_bias(kernel, bn_scale, bn_bias, bn_mean, bn_var, eps: float =
     return np.asarray(kernel, np.float32) * mul[:, None, None, None], bias
 
 
+_YOLO_INT8 = ("qkernel", "w_scale", "in_scale", "q_bias_leaky", "out_scale")
+
+
 def yolo_params_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
-    """The JAX package's float YOLO params (numpy or array-like leaves:
-    unfolded BN, or fold_bn_params' folded_bias_leaky / conv_bias) -> the
-    port's YoloV3 state_dict, numpy f32."""
+    """The JAX package's YOLO params (numpy or array-like leaves: unfolded
+    BN, fold_bn_params' folded_bias_leaky / conv_bias, or
+    quantize_yolo_params' int8 layers) -> the port's YoloV3 state_dict,
+    numpy. Float leaves are f32; int8 layers keep their names and the HWIO
+    int8 qkernel under the conv's prefix (conv_{i}.qkernel, ...)."""
     sd: Dict[str, np.ndarray] = {}
     for name, layer in params.items():
         for key, value in layer.items():
-            value = np.asarray(_to_np(value), np.float32)
+            value = _to_np(value)
+            if key == "qkernel":
+                sd[f"{name}.qkernel"] = np.asarray(value, np.int8)
+                continue
+            value = np.asarray(value, np.float32)
             if key == "kernel":
                 sd[f"{name}.conv.weight"] = np.ascontiguousarray(np.transpose(value, (3, 2, 0, 1)))
             elif key in ("folded_bias_leaky", "conv_bias"):
                 sd[f"{name}.conv.bias"] = value
             elif key in _YOLO_BN:
                 sd[f"{name}.{_YOLO_BN[key]}"] = value
+            elif key in _YOLO_INT8:
+                sd[f"{name}.{key}"] = value
             else:
-                raise KeyError(f"{name}/{key} is not a float YOLO parameter (the int8 "
-                               "detector is a later slice, ROADMAP Queue 1 item 14)")
+                raise KeyError(f"{name}/{key} is not a YOLO parameter")
     return sd
 
 
 def state_dict_to_yolo_params(sd: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
-    """The inverse of yolo_params_to_state_dict: a YoloV3 state_dict -> the
-    JAX package's params tree (kernels HWIO), numpy f32."""
+    """The inverse of yolo_params_to_state_dict: a YoloV3 state_dict (float
+    or int8) -> the JAX package's params tree (kernels HWIO), numpy."""
     from poserisk_release_tpu_torch.models.detector import YOLOV3_SPEC
 
     params: Dict[str, Dict[str, np.ndarray]] = {}
@@ -255,12 +265,42 @@ def state_dict_to_yolo_params(sd: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
         if rest.endswith("num_batches_tracked"):
             continue
         layer = params.setdefault(name, {})
-        value = np.asarray(_to_np(value), np.float32)
+        value = _to_np(value)
+        if rest == "qkernel":
+            layer[rest] = np.asarray(value, np.int8)
+            continue
+        value = np.asarray(value, np.float32)
         if rest == "conv.weight":
             layer["kernel"] = np.ascontiguousarray(np.transpose(value, (2, 3, 1, 0)))
         elif rest == "conv.bias":
             leaky = YOLOV3_SPEC[int(name.split("_")[1])][4]
             layer["folded_bias_leaky" if leaky else "conv_bias"] = value
+        elif rest in _YOLO_INT8:
+            layer[rest] = value
         else:
             layer[_YOLO_BN_INV[rest]] = value
     return params
+
+
+# ---------------------------------------------------------------------------
+# SPIN's folded / int8 ResNet-50 (models/resnet_int8.py). The port keeps the
+# JAX package's flat dict: {conv name: {kernel HWIO, bias}} folded, or
+# {qkernel HWIO int8, w_scale, in_scale, bias} quantized, with the same conv
+# names (conv1, layer{s}_{b}.conv{k}, layer{s}_{b}.downsample).
+# ---------------------------------------------------------------------------
+_RESNET_KEYS = {"kernel": np.float32, "bias": np.float32, "qkernel": np.int8,
+                "w_scale": np.float32, "in_scale": np.float32}
+
+
+def resnet_params_from_jax(params: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """The JAX package's fold_resnet50_params / quantize_resnet50 dict
+    (numpy or array-like leaves) -> the port's (numpy, the same names and
+    layouts). Raises on an unknown leaf."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, layer in params.items():
+        out[name] = {}
+        for key, value in layer.items():
+            if key not in _RESNET_KEYS:
+                raise KeyError(f"{name}/{key} is not a folded or int8 ResNet parameter")
+            out[name][key] = np.asarray(_to_np(value), _RESNET_KEYS[key])
+    return out

@@ -85,6 +85,45 @@ class HMR(ResNet50):
             self.init_cam.expand(B, 3), self.n_iter)
 
 
+def hmr_forward_quant(qbackbone: Dict, model: HMR, x: torch.Tensor,
+                      compute_dtype: torch.dtype = torch.bfloat16):
+    """HMR forward with the folded / int8-PTQ backbone
+    (models/resnet_int8.resnet50_forward): the same IEF head as
+    HMR.forward, on the HMR module's own head weights and mean-params state,
+    always in f32. Returns (rotmat, betas, camera)."""
+    from poserisk_release_tpu_torch.models.resnet_int8 import resnet50_forward
+
+    B = x.shape[0]
+    xf = resnet50_forward(qbackbone, x, compute_dtype)
+    return ief_head(
+        lambda name, t: getattr(model, name)(t), xf,
+        model.init_pose.expand(B, NPOSE), model.init_shape.expand(B, 10),
+        model.init_cam.expand(B, 3), model.n_iter)
+
+
+def quantize_spin_backbone(state_dict: Dict, sample_crops: torch.Tensor,
+                           percentile: float | None = None, bias_correct: bool = True,
+                           min_stage: int = 0) -> Dict:
+    """Fold + calibrate + quantize the SPIN backbone in one step, from the
+    HMR state_dict (f32) and a small representative (N, 224, 224, 3) [0, 1]
+    batch of crops. percentile: saturating calibration (None = absmax).
+    bias_correct (default) folds the expected per-channel quantization error
+    into the biases. min_stage quantizes only residual stages >= it."""
+    from poserisk_release_tpu_torch.models.resnet_int8 import (
+        bias_correct_resnet50,
+        calibrate_resnet50,
+        fold_resnet50_params,
+        quantize_resnet50,
+    )
+
+    folded = fold_resnet50_params(state_dict)
+    scales = calibrate_resnet50(folded, sample_crops, percentile=percentile)
+    q = quantize_resnet50(folded, scales, min_stage=min_stage)
+    if bias_correct:
+        q = bias_correct_resnet50(folded, q, sample_crops)
+    return q
+
+
 def load_mean_params(path: str) -> dict:
     """smpl_mean_params.npz -> {init_pose (1,144), init_shape (1,10), init_cam (1,3)}.
 

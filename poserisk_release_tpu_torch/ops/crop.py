@@ -1,5 +1,6 @@
 """The resamples of raw frames: the bbox crop (kernel K1's plain version and
-its dispatch) and the detector letterbox (kernel K2's letterbox half).
+its dispatch), the windowed crop (kernel K3's) and the detector letterbox
+(kernel K2's letterbox half).
 
 The reference crops one frame at a time on DataLoader workers with
 cv2.warpAffine (reference lib/utils/_img_utils.py:53-101, 219-252): bbox
@@ -61,13 +62,20 @@ def crop_batch_plain(
     scale: float = 1.2,
     out_size: int = 224,
     out_dtype: torch.dtype = torch.float32,
+    window: int = 0,
 ) -> torch.Tensor:
-    """The plain version of K1 on any device: (B, out, out, 3) in [0, 1]."""
+    """The plain version of K1 on any device: (B, out, out, 3) in [0, 1].
+    window > 0 is the plain version of K3 (crop_batch_windowed_plain)."""
     B, H, W = images.shape[0], images.shape[1], images.shape[2]
     bboxes = bboxes.to(device=images.device, dtype=torch.float32)
     ys, xs = crop_coords(bboxes, scale, out_size)
     y0, y1, wy0, wy1 = axis_taps(ys, H)
     x0, x1, wx0, wx1 = axis_taps(xs, W)
+    if window:
+        lo = window_blocks(bboxes, scale, window, W)[:, None].to(torch.int64) * WINDOW_CHUNK
+        zero = torch.zeros_like(wx0)
+        wx0 = torch.where((x0 >= lo) & (x0 < lo + window), wx0, zero)
+        wx1 = torch.where((x1 >= lo) & (x1 < lo + window), wx1, zero)
     b = torch.arange(B, device=images.device)[:, None, None]
 
     def px(yi, xi):
@@ -101,6 +109,73 @@ def crop_batch(
     if images.device.type == "cpu":
         return crop_batch_plain(images, bboxes, scale, out_size, out_dtype)
     raise ValueError(f"crop_batch has no path for device {images.device}")
+
+
+# ---------------------------------------------------------------------------
+# The windowed crop (kernel K3's plain version and its dispatch): K1's crop
+# reading only `window` columns from xblk * 128, xblk = clip(floor((xs_min -
+# 1) / 128), 0, n_blk - n_win) with xs_min the box's left edge, n_blk =
+# ceil(W / 128) and n_win = window / 128, as crop_batch_pallas_windowed
+# (poserisk_release_tpu/ops/resample_pallas.py:336) has it. A column tap
+# outside the window is dropped; crop_window_fits is the host-side guard
+# under which none is.
+# ---------------------------------------------------------------------------
+WINDOW_CHUNK = 128
+
+
+def crop_window_fits(bboxes, scale: float = 1.2, window: int = 384,
+                     chunk_w: int = WINDOW_CHUNK) -> bool:
+    """True when every box's scaled width, plus the two-tap overhang and a
+    FULL chunk of alignment slack (the window starts at a chunk boundary
+    below a real-valued left edge, up to just under chunk_w before it), fits
+    in the window: then the windowed crop drops no tap."""
+    bboxes = np.asarray(bboxes)
+    if bboxes.size == 0:
+        return True
+    return bool(np.max(bboxes[:, 2]) * scale + 2.0 + chunk_w <= window)
+
+
+def window_blocks(bboxes: torch.Tensor, scale: float, window: int, W: int) -> torch.Tensor:
+    """(B,) int32 first 128-column chunk of each frame's read window."""
+    n_total, n_win = -(-W // WINDOW_CHUNK), window // WINDOW_CHUNK
+    xs_min = bboxes[:, 0] - bboxes[:, 2] * (scale * 0.5)
+    blk = torch.floor((xs_min - 1.0) / WINDOW_CHUNK).to(torch.int32)
+    return torch.clamp(blk, 0, n_total - n_win)
+
+
+def _check_window(window: int) -> None:
+    if window <= 0 or window % WINDOW_CHUNK:
+        raise ValueError(f"window must be a positive multiple of {WINDOW_CHUNK}, got {window}")
+
+
+def crop_batch_windowed_plain(images, bboxes, scale=1.2, out_size=224, window=384,
+                              out_dtype=torch.bfloat16):
+    """The plain version of K3 on any device (a whole-width window is K1's)."""
+    _check_window(window)
+    if window // WINDOW_CHUNK >= -(-images.shape[2] // WINDOW_CHUNK):
+        return crop_batch_plain(images, bboxes, scale, out_size, out_dtype)
+    return crop_batch_plain(images, bboxes, scale, out_size, out_dtype, window=window)
+
+
+def crop_batch_windowed(images: torch.Tensor, bboxes: torch.Tensor, scale: float = 1.2,
+                        out_size: int = 224, window: int = 384,
+                        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The windowed crop: K3 on a CUDA device (K1 when the window covers
+    the whole width, as the JAX package routes it), its plain version on the
+    CPU; any other device raises. Exact (equal to crop_batch) only where
+    crop_window_fits holds; the caller checks that on the host."""
+    _check_window(window)
+    if window // WINDOW_CHUNK >= -(-images.shape[2] // WINDOW_CHUNK):
+        return crop_batch(images, bboxes, scale, out_size, out_dtype)
+    if images.device.type == "cuda":
+        from poserisk_release_tpu_torch.ops.resample import crop_batch_windowed_cuda
+
+        return crop_batch_windowed_cuda(
+            images, bboxes.to(device=images.device, dtype=torch.float32).contiguous(),
+            scale=scale, out_size=out_size, window=window, out_dtype=out_dtype)
+    if images.device.type == "cpu":
+        return crop_batch_windowed_plain(images, bboxes, scale, out_size, window, out_dtype)
+    raise ValueError(f"crop_batch_windowed has no path for device {images.device}")
 
 
 # ---------------------------------------------------------------------------

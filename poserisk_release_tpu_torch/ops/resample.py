@@ -4,6 +4,14 @@ K1, crop_batch_cuda, replaces crop_batch_pallas
 (poserisk_release_tpu/ops/resample_pallas.py:426): the batched bbox crop of
 the pose path (csrc/crop.cu; plain version ops/crop.crop_batch_plain).
 
+K3, crop_batch_windowed_cuda, replaces crop_batch_pallas_windowed
+(resample_pallas.py:336): K1's crop reading only a window of columns per
+frame (csrc/crop.cu; plain version ops/crop.crop_batch_windowed_plain).
+
+K1m, crop_batch_multi_cuda, replaces crop_batch_pallas_multi (the JAX
+package's tools/exp_window_crop.py:70): K1 with several frames per block,
+launched only by tools/exp_window_crop (plain version crop_batch_plain).
+
 K2, fused_letterbox_crop_cuda, replaces fused_letterbox_crop
 (resample_pallas.py:133): one launch writes the detector's letterbox canvas
 and the bbox crop from each frame, under the detection, pose and frame
@@ -34,15 +42,37 @@ def _lib():
 
     lib = _build.load("crop")
     if lib.crop_batch_launch.argtypes is None:
-        lib.crop_batch_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.crop_batch_launch.argtypes = [p, p, p, i, i, i, i, f, i, p]
         lib.crop_batch_launch.restype = ctypes.c_int
+        lib.crop_window_launch.argtypes = [p, p, p, i, i, i, i, f, i, i, p]
+        lib.crop_window_launch.restype = ctypes.c_int
+        lib.crop_multi_launch.argtypes = [p, p, p, i, i, i, i, f, i, i, p]
+        lib.crop_multi_launch.restype = ctypes.c_int
         lib.crop_error_string.argtypes = [ctypes.c_int]
         lib.crop_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_crop_inputs(name: str, frames_u8: torch.Tensor, bboxes: torch.Tensor,
+                       out_dtype: torch.dtype):
+    """The checks K1 and K3 share; returns (B, H, W)."""
+    if frames_u8.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA frames, got {frames_u8.device}")
+    if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4 or frames_u8.shape[3] != 3:
+        raise ValueError(
+            f"frames must be (B, H, W, 3) uint8, got {tuple(frames_u8.shape)} {frames_u8.dtype}")
+    B, H, W = (int(s) for s in frames_u8.shape[:3])
+    if (bboxes.device != frames_u8.device or bboxes.dtype != torch.float32
+            or tuple(bboxes.shape) != (B, 4)):
+        raise ValueError(
+            f"bboxes must be ({B}, 4) float32 on {frames_u8.device}, got "
+            f"{tuple(bboxes.shape)} {bboxes.dtype} on {bboxes.device}")
+    if not (frames_u8.is_contiguous() and bboxes.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous frames and bboxes")
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
+    return B, H, W
 
 
 def crop_batch_cuda(
@@ -55,22 +85,7 @@ def crop_batch_cuda(
     """(B, out_size, out_size, 3) crops in [0, 1] as f32 (strict) or bf16
     (fast), launched on the current stream. Raises on any input the kernel
     does not take and on a refused launch."""
-    if frames_u8.device.type != "cuda":
-        raise ValueError(f"crop_batch_cuda needs CUDA frames, got {frames_u8.device}")
-    if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4 or frames_u8.shape[3] != 3:
-        raise ValueError(
-            f"frames must be (B, H, W, 3) uint8, got {tuple(frames_u8.shape)} {frames_u8.dtype}")
-    B, H, W = (int(s) for s in frames_u8.shape[:3])
-    if (bboxes.device != frames_u8.device or bboxes.dtype != torch.float32
-            or tuple(bboxes.shape) != (B, 4)):
-        raise ValueError(
-            f"bboxes must be ({B}, 4) float32 on {frames_u8.device}, got "
-            f"{tuple(bboxes.shape)} {bboxes.dtype} on {bboxes.device}")
-    if not (frames_u8.is_contiguous() and bboxes.is_contiguous()):
-        raise ValueError("crop_batch_cuda needs contiguous frames and bboxes")
-    if out_dtype not in _OUT_DTYPES:
-        raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
-
+    B, H, W = _check_crop_inputs("crop_batch_cuda", frames_u8, bboxes, out_dtype)
     out = torch.empty((B, out_size, out_size, 3), dtype=out_dtype,
                       device=frames_u8.device)
     if B == 0:
@@ -80,8 +95,7 @@ def crop_batch_cuda(
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.crop_batch_launch(
             frames_u8.data_ptr(), bboxes.data_ptr(), out.data_ptr(),
-            B, H, W, int(out_size), float(scale),
-            int(out_dtype == torch.bfloat16), stream)
+            B, H, W, int(out_size), float(scale), int(out_dtype == torch.bfloat16), stream)
     if code != 0:
         raise RuntimeError(
             f"crop kernel launch failed: {lib.crop_error_string(code).decode()}")
@@ -90,6 +104,89 @@ def crop_batch_cuda(
 
 
 crop_batch_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1m: K1 with several frames per block (csrc/crop.cu, crop_multi_launch).
+# ---------------------------------------------------------------------------
+def crop_batch_multi_cuda(
+    frames_u8: torch.Tensor,
+    bboxes: torch.Tensor,
+    frames_per_block: int = 2,
+    scale: float = 1.2,
+    out_size: int = 224,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """K1m, replacing crop_batch_pallas_multi (tools/exp_window_crop.py:70,
+    the JAX tool's frames-per-program probe): K1's crop with each thread
+    cropping one pixel position of `frames_per_block` consecutive frames (B a
+    multiple of it). Its plain version is ops/crop.crop_batch_plain; only
+    tools/exp_window_crop calls it. Raises on any input the kernel does not
+    take and on a refused launch."""
+    B, H, W = _check_crop_inputs("crop_batch_multi_cuda", frames_u8, bboxes, out_dtype)
+    if frames_per_block < 1 or B % frames_per_block:
+        raise ValueError(f"frames_per_block {frames_per_block} does not divide {B} frames")
+    out = torch.empty((B, out_size, out_size, 3), dtype=out_dtype, device=frames_u8.device)
+    if B == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(frames_u8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.crop_multi_launch(
+            frames_u8.data_ptr(), bboxes.data_ptr(), out.data_ptr(),
+            B, H, W, int(out_size), float(scale), int(frames_per_block),
+            int(out_dtype == torch.bfloat16), stream)
+    if code != 0:
+        raise RuntimeError(
+            f"multi-frame crop kernel launch failed: {lib.crop_error_string(code).decode()}")
+    crop_batch_multi_cuda.launches += 1
+    return out
+
+
+crop_batch_multi_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel K3: the windowed crop (csrc/crop.cu, crop_window_launch).
+# ---------------------------------------------------------------------------
+def crop_batch_windowed_cuda(
+    frames_u8: torch.Tensor,
+    bboxes: torch.Tensor,
+    scale: float = 1.2,
+    out_size: int = 224,
+    window: int = 384,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """K3: K1's crop reading only `window` columns per frame, from the
+    chunk ops/crop.window_blocks gives (the kernel computes it from the
+    box); a column tap outside the window is dropped. The window must be
+    narrower than the frame's chunks (ops/crop.crop_batch_windowed routes whole-width windows
+    to K1). Raises on any input the kernel does not take and on a refused
+    launch."""
+    from poserisk_release_tpu_torch.ops.crop import WINDOW_CHUNK
+
+    B, H, W = _check_crop_inputs("crop_batch_windowed_cuda", frames_u8, bboxes, out_dtype)
+    if window <= 0 or window % WINDOW_CHUNK or window // WINDOW_CHUNK >= -(-W // WINDOW_CHUNK):
+        raise ValueError(f"window {window} must be a multiple of {WINDOW_CHUNK} narrower "
+                         f"than the {W}-column frame's chunks")
+    out = torch.empty((B, out_size, out_size, 3), dtype=out_dtype, device=frames_u8.device)
+    if B == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(frames_u8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.crop_window_launch(
+            frames_u8.data_ptr(), bboxes.data_ptr(), out.data_ptr(),
+            B, H, W, int(out_size), float(scale), int(window),
+            int(out_dtype == torch.bfloat16), stream)
+    if code != 0:
+        raise RuntimeError(
+            f"windowed crop kernel launch failed: {lib.crop_error_string(code).decode()}")
+    crop_batch_windowed_cuda.launches += 1
+    return out
+
+
+crop_batch_windowed_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,19 @@ bf16 crops, with the IEF head and everything after it in float32.
 Detector: YOLOv3 (models/detector.YoloDetector) when DETECTOR.weights
 exists, else the full-frame StubDetector.
 
-Not in this slice (each raises rather than degrading): the int8 detector
-and int8 SPIN, mesh parallelism and the streaming scorer.
+int8 PTQ (opt-in, as in the JAX package): DETECTOR.int8 (--fast_detector)
+quantizes the YOLOv3 tower and spin_int8 (--spin_int8) the SPIN backbone.
+Both calibrate their activation scales on the first frames they see, or up
+front from DETECTOR.calibration (apply_explicit_calibration), and
+DETECTOR.recalibrate_per_video re-derives them for every video.
+
+Not in this slice (each raises rather than degrading): mesh parallelism and
+the streaming scorer.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import os.path as osp
@@ -42,7 +49,7 @@ from poserisk_release_tpu_torch.body.smpl import SMPLFamily
 from poserisk_release_tpu_torch.config import Config, default_config
 from poserisk_release_tpu_torch.io.video import read_video_parallel
 from poserisk_release_tpu_torch.models import convert as model_convert
-from poserisk_release_tpu_torch.models.detector import INT8_LATER, StubDetector, YoloDetector
+from poserisk_release_tpu_torch.models.detector import StubDetector, YoloDetector
 from poserisk_release_tpu_torch.models.spin import HMR, init_spin_params, load_mean_params
 from poserisk_release_tpu_torch.ops.crop import crop_batch
 from poserisk_release_tpu_torch.ops.lbs import LBS, smpl_params_to_torch
@@ -65,7 +72,9 @@ from poserisk_release_tpu_torch.scoring.rula import RULAScorer
 from poserisk_release_tpu_torch.throughput import make_pose_core
 from poserisk_release_tpu_torch.tracking.mpt import (
     MultiPersonTracker,
+    detect_frames,
     filter_and_select_target,
+    squared_cxcywh,
     surviving_tracks,
 )
 
@@ -142,12 +151,18 @@ class PoseEstimator:
 
     def __init__(self, cfg: Config, smpl_family: SMPLFamily,
                  variables: Optional[Dict[str, torch.Tensor]] = None,
-                 gender: str = "neutral", fast: bool = False, device=None):
+                 gender: str = "neutral", fast: bool = False, spin_int8: bool = False,
+                 device=None):
         """variables: an HMR state_dict (models.convert.flax_to_state_dict
         turns the JAX package's Flax tree into one); None resolves them
         through load_spin_variables. fast=True runs the ResNet backbone in
         bfloat16 on bf16 crops; the default is the strict f32 configuration
-        with TF32 off."""
+        with TF32 off.
+
+        spin_int8=True routes the ResNet-50 through the int8 PTQ backbone
+        (models/resnet_int8), folded, calibrated and bias-corrected on the
+        first crops this estimator sees (at most 8), in the crops' dtype
+        around its int8 convs (f32 strict, bf16 fast)."""
         _check_single_device(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -168,6 +183,13 @@ class PoseEstimator:
         self._pose_stride = int(cfg.SPIN.pose_stride)
         if variables is None:
             variables = load_spin_variables(cfg)
+        # The f32 weights are folded at quantization time, so int8 keeps
+        # them (on the host) until then, or for good under
+        # recalibrate_per_video, which re-folds for every video.
+        self._spin_int8 = bool(spin_int8)
+        self._variables_f32 = (
+            {k: v.detach().cpu().clone() for k, v in variables.items()} if spin_int8 else None)
+        self._quant_backbone = self.quant_params = None
         model = HMR(n_iter=cfg.SPIN.ief_iters)
         model.load_state_dict(variables)
         model.eval()
@@ -183,6 +205,58 @@ class PoseEstimator:
             return
         self.smpl_params = smpl_params_to_torch(self._family[gender], self.device)
         self.gender = gender
+
+    def _ensure_spin_quantized(self, calib_crops: torch.Tensor) -> None:
+        """spin_int8 lifecycle: fold + calibrate + bias-correct the backbone
+        on the first crops (at most 8), then rebuild the pose core around
+        it. No-op once quantized or without spin_int8."""
+        if not self._spin_int8 or self._quant_backbone is not None:
+            return
+        from poserisk_release_tpu_torch.models.spin import quantize_spin_backbone
+
+        calib = torch.as_tensor(calib_crops[:8], dtype=torch.float32, device=self.device)
+        self.load_quant_backbone(quantize_spin_backbone(
+            self._variables_f32, calib, min_stage=int(self.cfg.SPIN.int8_min_stage)))
+        if not self.cfg.DETECTOR.recalibrate_per_video:
+            self._variables_f32 = None
+
+    def load_quant_backbone(self, qparams: Dict) -> None:
+        """Run the pose core through the given folded / int8 backbone dict
+        (quantize_spin_backbone's, or the JAX package's through
+        models/convert.resnet_params_from_jax), kept as `quant_params`."""
+        from poserisk_release_tpu_torch.models.resnet_int8 import prepare_resnet50
+
+        self.quant_params = qparams
+        self._quant_backbone = prepare_resnet50(qparams, self.device)
+        self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride,
+                                         quant_backbone=self._quant_backbone)
+
+    def reset_calibration(self) -> None:
+        """Drop the int8 backbone so the next crops (or calibrate_spin)
+        re-derive the activation scales: the SPIN half of
+        DETECTOR.recalibrate_per_video. No-op without spin_int8 or before
+        quantization; raises when the f32 weights were released (the
+        estimator was not built under recalibrate_per_video)."""
+        if not self._spin_int8 or self._quant_backbone is None:
+            return
+        if self._variables_f32 is None:
+            raise RuntimeError(
+                "cannot reset spin_int8 calibration: the f32 parameter tree "
+                "was released; construct the estimator with "
+                "DETECTOR.recalibrate_per_video=True to keep it resident")
+        self._quant_backbone = self.quant_params = None
+        self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride)
+
+    def calibrate_spin(self, crops) -> None:
+        """Explicit spin_int8 calibration on representative person crops
+        ((N, 224, 224, 3) float [0, 1]). No-op without spin_int8, once
+        quantized, or on no crops."""
+        if self.spin_needs_calibration and len(crops):
+            self._ensure_spin_quantized(torch.as_tensor(np.asarray(crops)[:8]))
+
+    @property
+    def spin_needs_calibration(self) -> bool:
+        return self._spin_int8 and self._quant_backbone is None
 
     def _pose_step(self, crops: torch.Tensor):
         return self._pose_core(self.model, self.smpl_params, crops)
@@ -201,6 +275,8 @@ class PoseEstimator:
     def run(self, crops: np.ndarray, chunk: int = 0):
         """crops: (F, 224, 224, 3) float32 [0,1]. Chunked + padded execution;
         under pose_stride > 1 only every Nth crop is uploaded (the anchors)."""
+        if crops.shape[0]:
+            self._ensure_spin_quantized(torch.as_tensor(crops[:8]))
         stride = self._pose_stride
         return self._run_chunked(
             crops.shape[0],
@@ -217,6 +293,13 @@ class PoseEstimator:
         tracked frame is uploaded."""
         frame_ids = np.asarray(frame_ids)
         bboxes = np.asarray(bboxes, np.float32)
+        if self.spin_needs_calibration and len(frame_ids):
+            # The first 8 tracked frames' f32 crops calibrate the backbone.
+            self._ensure_spin_quantized(crop_batch(
+                torch.as_tensor(frames_rgb[frame_ids[:8]], device=self.device),
+                torch.as_tensor(bboxes[:8], device=self.device),
+                scale=float(self.cfg.DATASET.bbox_scale),
+                out_size=int(self.cfg.MODEL.input_shape[0])))
         stride = self._pose_stride
         return self._run_chunked(
             len(frame_ids),
@@ -312,11 +395,7 @@ def validate_rotation_roundtrip(axis_angles) -> None:
 def build_detector(cfg: Config, device=None):
     """The Predictor's detector policy: YOLOv3 from DETECTOR.weights when
     the file exists, else the full-frame StubDetector that keeps weight-free
-    environments runnable. DETECTOR.int8 raises: the int8 detector is a
-    later slice of the port, and running float instead would be a silent
-    change of result."""
-    if cfg.DETECTOR.int8:
-        raise NotImplementedError(f"DETECTOR.int8: {INT8_LATER}")
+    environments runnable."""
     if osp.isfile(cfg.DETECTOR.weights):
         return YoloDetector.from_weights(
             cfg.DETECTOR.weights,
@@ -326,6 +405,8 @@ def build_detector(cfg: Config, device=None):
             batch_size=cfg.DETECTOR.batch_size,
             rect=cfg.DETECTOR.rect_letterbox,
             max_device_dets=cfg.DETECTOR.max_device_dets,
+            int8=cfg.DETECTOR.int8,
+            int8_min_downsample=cfg.DETECTOR.int8_min_downsample,
             device=device,
         )
     print("[poserisk] no detector weights found; using full-frame stub detector")
@@ -339,6 +420,45 @@ def load_add_info(cfg: Config, info_path: str) -> Dict:
     path = info_path if osp.isfile(info_path) else cfg.DATASET.default_information
     with open(path) as f:
         return json.load(f)
+
+
+def apply_explicit_calibration(cfg: Config, detector, pose_estimator) -> None:
+    """The explicit int8 calibration lifecycle (DETECTOR.calibration):
+    derive the activation scales from an operator-supplied source before any
+    video frame is seen, so a dark opening window cannot pin them. The same
+    frames calibrate the int8 SPIN backbone: the freshly calibrated detector
+    proposes person boxes (the largest per frame, squared as the tracker
+    squares them; the full frame when nothing clears the threshold) on up to
+    8 evenly drawn frames, and their crops feed quantize_spin_backbone."""
+    src = cfg.DETECTOR.calibration
+    if not src:
+        return
+    needs_det = getattr(detector, "needs_calibration", False)
+    needs_spin = pose_estimator.spin_needs_calibration
+    if not (needs_det or needs_spin):
+        return
+    from poserisk_release_tpu_torch.io.video import load_calibration_frames
+
+    frames = load_calibration_frames(src, cfg.DETECTOR.calibration_frames)
+    if needs_det:
+        detector.calibrate(frames)
+    if needs_spin:
+        sample = frames[:: max(1, len(frames) // 8)][:8]
+        H, W = sample.shape[1:3]
+        boxes = []
+        for dets in detect_frames(detector, sample):
+            if len(dets):
+                best = dets[np.argmax((dets[:, 2] - dets[:, 0]) * (dets[:, 3] - dets[:, 1]))]
+                boxes.append(squared_cxcywh(best[0], best[1], best[2], best[3]))
+            else:
+                side = float(max(H, W))
+                boxes.append([W / 2.0, H / 2.0, side, side])
+        dev = pose_estimator.device
+        crops = crop_batch(torch.as_tensor(sample, device=dev),
+                           torch.as_tensor(np.asarray(boxes, np.float32), device=dev),
+                           scale=float(cfg.DATASET.bbox_scale),
+                           out_size=int(cfg.MODEL.input_shape[0]))
+        pose_estimator.calibrate_spin(crops.cpu().numpy())
 
 
 class Predictor:
@@ -359,6 +479,7 @@ class Predictor:
         multi_person: bool = False,
         person_genders: Optional[Dict] = None,
         fast: bool = False,
+        spin_int8: bool = False,
         validate_rotations: bool = False,
         device=None,
     ):
@@ -376,7 +497,7 @@ class Predictor:
         self._lbs_cache: Dict[str, LBS] = {}
         self.pose_estimator = PoseEstimator(
             self.cfg, self.smpl, variables=spin_variables, gender=gender,
-            fast=fast, device=self.device,
+            fast=fast, spin_int8=spin_int8, device=self.device,
         )
 
         # The detector comes after the PoseEstimator, which turns TF32 off on
@@ -418,6 +539,15 @@ class Predictor:
     def __call__(self, input_path: str, info_path: str, output_path: str):
         os.makedirs(output_path, exist_ok=True)
         self.timings = {}
+
+        # Shared-instance lifecycle: re-derive the int8 scales per video
+        # rather than inherit the previous video's. With an explicit source
+        # the scales are a function of that source alone, so no reset.
+        if self.cfg.DETECTOR.recalibrate_per_video and not self.cfg.DETECTOR.calibration:
+            if hasattr(self.tracker.detector, "reset_calibration"):
+                self.tracker.detector.reset_calibration()
+            self.pose_estimator.reset_calibration()
+        apply_explicit_calibration(self.cfg, self.tracker.detector, self.pose_estimator)
 
         print("\n===> Data preprocessing...")
         if self.cfg.DATASET.jpeg_ingest:
@@ -497,7 +627,15 @@ class Predictor:
                     pieces.append(item[2])
                     yield item[1], item[2]
 
-        tracking_results = self.tracker.track_windows(windows())
+        gen = iter(windows())
+        if getattr(self.tracker.detector, "needs_calibration", False):
+            # int8 under windowed ingest: calibrate on the first decoded
+            # window, then detect every window, the first included, int8.
+            first = next(gen, None)
+            if first is not None:
+                self.tracker.detector.calibrate(first[1])
+                gen = itertools.chain([first], gen)
+        tracking_results = self.tracker.track_windows(gen)
         if not pieces:
             raise ValueError(f"video decoded to zero frames: {input_path}")
         clip = VideoClip(frames=np.concatenate(pieces), fps=fps)

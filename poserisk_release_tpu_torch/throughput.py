@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from poserisk_release_tpu_torch.models.spin import hmr_forward_quant
 from poserisk_release_tpu_torch.ops.lbs import joints_only
 from poserisk_release_tpu_torch.ops.rotations import (
     rotmat_to_axis_angle,
@@ -26,7 +27,8 @@ from poserisk_release_tpu_torch.ops.rotations import (
 ROOT_POSE = (3.14, 0.0, 0.0)
 
 
-def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1):
+def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1,
+                   quant_backbone: Dict | None = None):
     """THE pose step (one definition so the subtle ordering cannot
     desynchronise): SPIN forward -> Euler from the ORIGINAL rotmats ->
     axis-angle with the root forced to ROOT_POSE (the reference mutates its
@@ -39,6 +41,12 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1):
     surrounding anchors (anchors sit at t == 0, so anchor poses are
     bit-exact vs stride 1). Frames after the LAST anchor hold its pose.
 
+    quant_backbone: the folded / int8-PTQ ResNet-50 (models/spin.
+    quantize_spin_backbone, prepared by models/resnet_int8.prepare_resnet50)
+    in place of the HMR module's backbone; it computes in the crops' dtype
+    (f32 strict, bf16 fast). The IEF head and everything after it are
+    unchanged.
+
     Returns core(spin_model, smpl_params, crops) ->
     (euler_deg (B, 24, 3), joint_cam_mm (B, 24, 3), aa_forced (B, 24, 3)),
     where B = crops.shape[0] * pose_stride; spin_model is the HMR module.
@@ -47,7 +55,11 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1):
         raise ValueError(f"pose_stride must be >= 1, got {pose_stride}")
 
     def core(spin_model, smpl_params: Dict[str, torch.Tensor], crops: torch.Tensor):
-        rotmat, _betas, _cam = spin_model(crops)
+        if quant_backbone is None:
+            rotmat, _betas, _cam = spin_model(crops)
+        else:
+            rotmat, _betas, _cam = hmr_forward_quant(quant_backbone, spin_model, crops,
+                                                     crops.dtype)
         if pose_stride > 1:
             anchors = rotmat.shape[0]
             n_frames = anchors * pose_stride
@@ -71,7 +83,8 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1):
     return core
 
 
-def make_pose_and_score_step(parents: Tuple[int, ...], pose_stride: int = 1):
+def make_pose_and_score_step(parents: Tuple[int, ...], pose_stride: int = 1,
+                             quant_backbone: Dict | None = None):
     """Returns step(spin_model, smpl_params, crops, info_reba, info_rula) ->
     (reba_scores, rula_scores, euler_deg, joint_cam_mm). The crops' dtype
     and the HMR's backbone dtype select strict f32 or fast bf16; rotations
@@ -80,7 +93,7 @@ def make_pose_and_score_step(parents: Tuple[int, ...], pose_stride: int = 1):
     from poserisk_release_tpu_torch.scoring.reba import reba_frame_scores
     from poserisk_release_tpu_torch.scoring.rula import rula_frame_scores
 
-    core = make_pose_core(parents, pose_stride=pose_stride)
+    core = make_pose_core(parents, pose_stride=pose_stride, quant_backbone=quant_backbone)
 
     def step(spin_model, smpl_params, crops, info_reba, info_rula):
         euler, joint_cam, _aa = core(spin_model, smpl_params, crops)
@@ -94,7 +107,7 @@ def make_pose_and_score_step(parents: Tuple[int, ...], pose_stride: int = 1):
 def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: int = 416,
                          compute_dtype: torch.dtype = torch.float32, rect: bool = True,
                          fused_resample: bool = False, det_stride: int = 1,
-                         pose_stride: int = 1):
+                         pose_stride: int = 1, quant_backbone: Dict | None = None):
     """The full per-frame device path, detector included.
 
     step(yolo_model, spin_model, smpl_params, frames_u8, bboxes, info_reba,
@@ -104,7 +117,9 @@ def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: in
     sits between detection and cropping on the host. compute_dtype is the
     resample outputs' dtype (f32 strict, bf16 fast); the models compute in
     their own parameters' dtype, so for bf16 pass a YOLO cast to bf16 and an
-    HMR whose backbone is (HMR.cast_backbone).
+    HMR whose backbone is (HMR.cast_backbone). The int8 configuration takes
+    a quantized YoloV3 (models/detector.quantize_yolo_params; it computes in
+    bf16 around its int8 convs) and a quant_backbone (make_pose_core).
 
     rect=True letterboxes onto the rectangular canvas (416x288 for 800x450
     frames). det_stride > 1 runs the letterbox and the detector only on
@@ -129,7 +144,8 @@ def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: in
 
     if det_stride < 1 or pose_stride < 1:
         raise ValueError(f"strides must be >= 1, got det {det_stride}, pose {pose_stride}")
-    pose_step = make_pose_and_score_step(parents, pose_stride=pose_stride)
+    pose_step = make_pose_and_score_step(parents, pose_stride=pose_stride,
+                                         quant_backbone=quant_backbone)
 
     def step(yolo_m, spin_model, smpl_params, frames, bboxes, info_reba, info_rula):
         if pose_stride > 1 and frames.shape[0] % pose_stride:

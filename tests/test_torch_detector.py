@@ -282,5 +282,7 @@ def test_stub_detector_matches_jax():
 
 
 def test_int8_detector_is_a_later_slice(port_init):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        td.YoloDetector(params=port_init, int8=True, device="cpu")
+    """The int8 detector is in the port now (tests/test_torch_detector_int8.py):
+    an int8 detector starts float and awaits calibration."""
+    det = td.YoloDetector(params=td.fold_bn_params(port_init), int8=True, device="cpu")
+    assert det.int8 and det.needs_calibration and not det.model.quantized

@@ -37,7 +37,9 @@ def _port_modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
-    for mod in ("ops.resample", "ops.skin", "ops.lbs", "models.detector", "throughput"):
+    for mod in ("ops.resample", "ops.skin", "ops.lbs", "models.detector", "throughput",
+                "ops.qconv", "ops.yolo_stage", "models.resnet_int8", "tools.exp_fused_stage",
+                "tools.exp_window_crop"):
         assert f"poserisk_release_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
@@ -88,8 +90,8 @@ def test_predictor_and_cli_without_device_raise_when_cuda_absent(no_cuda, tmp_pa
 
 
 @pytest.mark.parametrize("argv", [
-    ["--spin_int8"], ["--fast_detector"], ["--tp", "2"], ["--num_devices", "2"],
-    ["--streaming"], ["--recalibrate_per_video"], ["--calibration", "x.npz"],
+    ["--tp", "2"], ["--num_devices", "2"], ["--streaming"], ["--sp", "2"], ["--pp", "2"],
+    ["--ep", "2"],
 ])
 def test_cli_rejects_later_slice_flags(argv, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -97,8 +99,25 @@ def test_cli_rejects_later_slice_flags(argv, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP" in err
-    if argv == ["--fast_detector"]:  # rect + int8: the int8 detector alone is missing
-        assert "item 14" in err and "item 10" not in err
+    assert ("item 12" in err) == (argv == ["--streaming"])
+
+
+def test_tools_and_int8_entry_points_without_device_raise_when_cuda_absent(no_cuda):
+    from poserisk_release_tpu_torch.models.detector import (
+        YoloDetector,
+        fold_bn_params,
+        init_yolo_params,
+    )
+    from poserisk_release_tpu_torch.tools import exp_fused_stage, exp_window_crop
+
+    cfg = default_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PoseEstimator(cfg, SMPLFamily(cfg.SPIN.smpl_model_dir), spin_int8=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        YoloDetector(params=fold_bn_params(init_yolo_params(0)), int8=True, rect=True)
+    for tool in (exp_fused_stage, exp_window_crop):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tool.main([])
 
 
 def test_cli_accepts_debug_frame(monkeypatch, tmp_path):
@@ -124,10 +143,10 @@ def test_cli_accepts_debug_frame(monkeypatch, tmp_path):
 
 
 def test_debug_frame_and_detector_weights_raise(tmp_path, monkeypatch):
-    """What raised before the detector and mesh slice now runs: detector
-    weights give the YOLOv3 detector with the config's settings, and a
-    Predictor takes debug_frame. The int8 detector still raises, before any
-    weights are read."""
+    """What raised before the detector, mesh and int8 slices now runs:
+    detector weights give the YOLOv3 detector with the config's settings,
+    DETECTOR.int8 an int8 one awaiting calibration, and a Predictor takes
+    debug_frame."""
     from poserisk_release_tpu_torch.models import detector
     from poserisk_release_tpu_torch.pipeline import build_detector
 
@@ -137,9 +156,6 @@ def test_debug_frame_and_detector_weights_raise(tmp_path, monkeypatch):
         "weights": str(weights), "img_size": 320, "detection_threshold": 0.3,
         "nms_threshold": 0.5, "batch_size": 4, "rect_letterbox": True,
         "max_device_dets": 32})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_detector(cfg.replace(DETECTOR={"int8": True}), "cpu")
-
     loaded = []
 
     def fake_load(path):
@@ -153,6 +169,8 @@ def test_debug_frame_and_detector_weights_raise(tmp_path, monkeypatch):
     assert (det.img_size, det.detection_threshold, det.nms_threshold, det.batch_size,
             det.rect, det.max_device_dets, det.device.type) == (
         320, 0.3, 0.5, 4, True, 32, "cpu")
+    int8 = build_detector(cfg.replace(DETECTOR={"int8": True, "int8_min_downsample": 8}), "cpu")
+    assert int8.int8 and int8.int8_min_downsample == 8 and int8.needs_calibration
 
     pred = Predictor(debug=True, debug_frame=0, device="cpu", detector=detector.StubDetector())
     assert pred.debug_frame == 0
