@@ -780,7 +780,9 @@ def stage_check(device, frames) -> dict:
     the three stage shapes, B = CHUNK, bf16 input, the quantized params of
     the seed-0 detector calibrated on the smoke's frames: the kernel
     against its plain version (target 0) and the A/B against the per-conv
-    int8 chain (torch._int_mm), which is the row's library_ms."""
+    int8 chain (torch._int_mm), which is the row's library_ms. Prints per
+    stage the kernel's ms, TOPS, share of the operations bound, the design's
+    byte floor, the chain's ms and the split of one call by kernel."""
     from poserisk_release_tpu_torch.ops.yolo_stage import fused_residual_stage_cuda
     from poserisk_release_tpu_torch.tools.exp_fused_stage import calibrated_qparams, stage_ab
 
@@ -789,14 +791,19 @@ def stage_check(device, frames) -> dict:
     rows = stage_ab(qparams, device, batch=CHUNK)
     all_launches = fused_residual_stage_cuda.launches
     # The kernels line counts the tool's one pass (its checked call per
-    # stage, two launches per block), not its timing loops.
+    # stage: a quantize launch, then two launches per block), not its
+    # timing loops.
     launches = sum(r["launches"] for r in rows)
     print(json.dumps({"phase": "stage_check", "k5_launches_one_pass": launches,
-                      "k5_launches_with_timing": all_launches, "stages": rows}))
+                      "k5_launches_with_timing": all_launches, "stages": [
+                          {k: r[k] for k in ("stage", "ms", "tops", "pct_of_bound", "bound_ms",
+                                             "floor_ms", "floor_by", "chain_ms", "kernels")}
+                          for r in rows]}))
     err = max(r["max_abs_err"] for r in rows)
     if err != 0.0:
         raise AssertionError(f"fused stage kernel disagrees with its plain version: {rows}")
-    if not (all(r["launches"] == 2 * r["blocks"] for r in rows) and all_launches >= launches):
+    if not (all(r["launches"] == 2 * r["blocks"] + 1 for r in rows)
+            and all_launches >= launches):
         raise AssertionError(f"the fused stage tool did not launch the stage kernel: {rows}")
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
     return {"name": "fused_residual_stage_cuda", "route": "cuda",

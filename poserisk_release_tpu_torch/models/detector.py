@@ -38,6 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from poserisk_release_tpu_torch.device import resolve_device
+
 
 # ---------------------------------------------------------------------------
 # Architecture spec (canonical yolov3.cfg), the JAX package's YOLOV3_SPEC.
@@ -591,8 +593,6 @@ class YoloDetector:
                  nms_threshold: float = 0.45, batch_size: int = 8, rect: bool = False,
                  max_device_dets: int = 256, int8: bool = False, int8_min_downsample: int = 1,
                  device=None):
-        from poserisk_release_tpu_torch.pipeline import resolve_device
-
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from poserisk_release_tpu_torch.body.smpl import SMPLModel
+from poserisk_release_tpu_torch.device import resolve_device
 from poserisk_release_tpu_torch.ops.rotations import axis_angle_to_rotmat_smpl
 
 
@@ -178,8 +179,6 @@ class LBS:
     device=None means CUDA, and raises without it."""
 
     def __init__(self, model: SMPLModel, device=None):
-        from poserisk_release_tpu_torch.pipeline import resolve_device
-
         self.device = resolve_device(device)
         self.params = smpl_params_to_torch(model, self.device)
         parents = np.asarray(model.kintree_parents).astype(np.int64).copy()

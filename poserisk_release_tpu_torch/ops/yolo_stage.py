@@ -19,11 +19,13 @@ pack_yolo_stage stacks a stage's int8 params with the JAX package's checks,
 shapes and host arithmetic (yolo_stage_pallas.py:50-96).
 fused_residual_stage_plain is the plain version: torch ops in the kernel's
 order, the int32 sums taken exactly in float64. fused_residual_stage_cuda
-launches csrc/yolo_stage.cu (two launches per block: the 1x1 product and
-the 3x3 implicit GEMM, both on mma.sync s8 tensor-core instructions); its
-source says what bounds it and how it is laid out. fused_residual_stage
-dispatches a CUDA tensor to the kernel and a CPU tensor to the plain
-version, and raises on any other device.
+launches csrc/yolo_stage.cu: one quantize launch for the first block's int8
+input, then per block a 1x1 int8 GEMM and a 3x3 int8 implicit GEMM on wgmma
+s8 tensor-core instructions fed by a ring of cp.async copies; the 3x3 writes
+the next block's int8 input beside the f32 stream. Its source says what
+bounds it and how it is laid out. fused_residual_stage dispatches a CUDA
+tensor to the kernel and a CPU tensor to the plain version, and raises on
+any other device.
 """
 
 from __future__ import annotations
@@ -124,17 +126,18 @@ def _lib():
     from poserisk_release_tpu_torch import _build
 
     lib = _build.load("yolo_stage")
-    if lib.yolo_stage_block_launch.argtypes is None:
+    if lib.yolo_stage_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.yolo_stage_block_launch.argtypes = [
-            p, i, p, i,  # h_in, in_bf16, h_out, out_bf16
-            p, p,  # aq scratch, qk1t (C/2, C)
-            p, p, p, p,  # d1, b1, d3, b3
-            p,  # qk3t (C, 9*C/2)
-            ctypes.c_float, ctypes.c_float,  # inv_s of the 1x1 and the 3x3
-            i, i, i, i, p,  # B, H, W, C, stream
+        lib.yolo_stage_launch.argtypes = [
+            p, i, p, i,  # h, in_bf16, out, out_bf16
+            p, p, p,  # scratch: f32 stream, q (M, C) s8, aq (M, C/2) s8
+            p, p, p,  # qk1t (n, C/2, C), d1, b1
+            p, p, p,  # qk3t (n, C, 9*C/2), d3, b3
+            p, i,  # inv_s (n, 2) f32 in host memory, n_blocks
+            i, i, i, i,  # B, H, W, C
+            p,  # stream
         ]
-        lib.yolo_stage_block_launch.restype = ctypes.c_int
+        lib.yolo_stage_launch.restype = ctypes.c_int
         lib.yolo_stage_error_string.argtypes = [ctypes.c_int]
         lib.yolo_stage_error_string.restype = ctypes.c_char_p
     return lib
@@ -148,7 +151,7 @@ def device_pack(pack: Dict, device) -> Dict[str, torch.Tensor]:
     p = _pack_tensors(pack, device)
     return dict(p, qk1t=p["qk1"].transpose(1, 2).contiguous(),
                 qk3t=p["qk3"].transpose(1, 2).contiguous(),
-                inv_s_host=p["inv_s"].cpu().numpy())
+                inv_s_host=np.ascontiguousarray(p["inv_s"].cpu().numpy(), np.float32))
 
 
 def fused_residual_stage_cuda(h: torch.Tensor, pack: Dict, n_blocks: int) -> torch.Tensor:
@@ -167,33 +170,35 @@ def fused_residual_stage_cuda(h: torch.Tensor, pack: Dict, n_blocks: int) -> tor
     if C % 128:
         raise ValueError(f"channels must be a multiple of 128, got {C}")
     p = pack if "qk1t" in pack else device_pack(pack, h.device)
-    if tuple(p["qk1t"].shape) != (n_blocks, C // 2, C) or p["qk1t"].device != h.device:
+    if (n_blocks < 1 or tuple(p["qk1t"].shape) != (n_blocks, C // 2, C)
+            or p["qk1t"].device != h.device):
         raise ValueError(f"pack does not hold {n_blocks} blocks of C = {C} on {h.device}")
     out = torch.empty_like(h)
     if B * H * W == 0:
         return out
-    # The f32 residual stream between blocks, and the 1x1's int8 output.
-    stream = (torch.empty((B, H, W, C), dtype=torch.float32, device=h.device)
+    # The f32 stream between blocks, the int8 input of each block's 1x1 (q)
+    # and of its 3x3 (aq).
+    M = B * H * W
+    stream = (torch.empty((M, C), dtype=torch.float32, device=h.device)
               if n_blocks > 1 else None)
-    aq = torch.empty((B * H * W, C // 2), dtype=torch.int8, device=h.device)
+    q = torch.empty((M, C), dtype=torch.int8, device=h.device)
+    aq = torch.empty((M, C // 2), dtype=torch.int8, device=h.device)
+    inv_s = p["inv_s_host"]
     lib = _lib()
     with torch.cuda.device(h.device):
-        st = torch.cuda.current_stream().cuda_stream
-        for j in range(n_blocks):
-            src = h if j == 0 else stream
-            dst = out if j == n_blocks - 1 else stream
-            code = lib.yolo_stage_block_launch(
-                src.data_ptr(), int(src.dtype == torch.bfloat16),
-                dst.data_ptr(), int(dst.dtype == torch.bfloat16),
-                aq.data_ptr(), p["qk1t"][j].data_ptr(),
-                p["d1"][j].data_ptr(), p["b1"][j].data_ptr(),
-                p["d3"][j].data_ptr(), p["b3"][j].data_ptr(),
-                p["qk3t"][j].data_ptr(),
-                float(p["inv_s_host"][j, 0]), float(p["inv_s_host"][j, 1]), B, H, W, C, st)
-            if code != 0:
-                raise RuntimeError(
-                    f"yolo_stage kernel launch failed: {lib.yolo_stage_error_string(code).decode()}")
-            fused_residual_stage_cuda.launches += 2  # the block's 1x1 and 3x3 kernels
+        code = lib.yolo_stage_launch(
+            h.data_ptr(), int(h.dtype == torch.bfloat16), out.data_ptr(),
+            int(out.dtype == torch.bfloat16), None if stream is None else stream.data_ptr(),
+            q.data_ptr(), aq.data_ptr(),
+            p["qk1t"].data_ptr(), p["d1"].data_ptr(), p["b1"].data_ptr(),
+            p["qk3t"].data_ptr(), p["d3"].data_ptr(), p["b3"].data_ptr(),
+            inv_s.ctypes.data, n_blocks, B, H, W, C,
+            torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(
+            f"yolo_stage kernel launch failed: {lib.yolo_stage_error_string(code).decode()}")
+    # The quantize launch, then each block's 1x1 and 3x3 kernels.
+    fused_residual_stage_cuda.launches += 2 * n_blocks + 1
     return out
 
 

@@ -47,6 +47,7 @@ import torch
 
 from poserisk_release_tpu_torch.body.smpl import SMPLFamily
 from poserisk_release_tpu_torch.config import Config, default_config
+from poserisk_release_tpu_torch.device import resolve_device
 from poserisk_release_tpu_torch.io.video import read_video_parallel
 from poserisk_release_tpu_torch.models import convert as model_convert
 from poserisk_release_tpu_torch.models.detector import StubDetector, YoloDetector
@@ -77,17 +78,6 @@ from poserisk_release_tpu_torch.tracking.mpt import (
     squared_cxcywh,
     surviving_tracks,
 )
-
-
-def resolve_device(device=None) -> torch.device:
-    """The entry points' device rule: the caller's device, else CUDA; with
-    neither a device nor CUDA it raises instead of using the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' (or --cpu) to run the "
-            "port on the CPU")
-    return device
 
 
 def load_spin_variables(cfg: Config) -> Dict[str, torch.Tensor]:

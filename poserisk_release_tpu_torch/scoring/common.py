@@ -7,6 +7,8 @@ from typing import Callable, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from poserisk_release_tpu_torch.device import resolve_device
+
 
 def chain(branches: Sequence[Tuple[torch.Tensor, object]], default) -> torch.Tensor:
     """Vectorised if/elif/else: the first true branch wins, like Python's
@@ -26,17 +28,19 @@ SCORE_CHUNK_MAX = 1024
 
 
 def frame_scores_chunked(
-    score_fn: Callable, poses: np.ndarray, info_packed: np.ndarray, device="cpu"
+    score_fn: Callable, poses: np.ndarray, info_packed: np.ndarray, device=None
 ) -> Dict[str, np.ndarray]:
     """Run a per-frame scoring engine (reba/rula_frame_scores) on `device`
-    in chunks of at most SCORE_CHUNK_MAX frames (bounded device memory;
-    scoring has no cross-frame op, so chunking is exact).
+    (resolve_device: CUDA unless the caller names another device) in chunks
+    of at most SCORE_CHUNK_MAX frames (bounded device memory; scoring has no
+    cross-frame op, so chunking is exact).
 
     Dtype policy: the engine scores at the INPUT's precision, float64
     inputs in float64 and everything else in float32. The reference
     evaluates its rule chains on float64 angles against integer thresholds,
     so an angle within f32 rounding of a threshold (110 - 1e-6 rounds to
     110.0 in f32) would flip a branch if the engine downcast it."""
+    device = resolve_device(device)
     poses = np.asarray(poses)
     if poses.dtype != np.float64:
         poses = poses.astype(np.float32)

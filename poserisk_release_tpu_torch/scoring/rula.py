@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from poserisk_release_tpu_torch.body.smpl import JOINT_INDEX
+from poserisk_release_tpu_torch.device import resolve_device
 from poserisk_release_tpu_torch.scoring import tables
 from poserisk_release_tpu_torch.scoring.common import chain, frame_scores_chunked, table_gather
 
@@ -389,9 +390,9 @@ def format_angle_logs(euler_deg: np.ndarray, add_info: Dict) -> List[Dict[str, s
 class RULAScorer:
     """Host-facing scorer matching the reference RULA class's call contract."""
 
-    def __init__(self, debug: bool = False, device="cpu"):
+    def __init__(self, debug: bool = False, device=None):
         self.debugging = debug
-        self.device = device
+        self.device = resolve_device(device)
         self.eval_items = list(EVAL_ITEMS)
         self.log: List[Dict[str, str]] = []
 

@@ -100,7 +100,7 @@ def window_crop_ab(frames: torch.Tensor, boxes: torch.Tensor,
 
 
 def main(argv=None) -> int:
-    from poserisk_release_tpu_torch.pipeline import resolve_device
+    from poserisk_release_tpu_torch.device import resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("batch", type=int, nargs="?", default=64)

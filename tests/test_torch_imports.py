@@ -120,6 +120,30 @@ def test_tools_and_int8_entry_points_without_device_raise_when_cuda_absent(no_cu
             tool.main([])
 
 
+@pytest.mark.parametrize("scorer", ["REBA", "RULA"])
+def test_scorers_without_device_raise_when_cuda_absent(no_cuda, scorer):
+    """The scorers follow the entry points' rule (resolve_device): CUDA
+    unless the CPU is named, never a quiet CPU default."""
+    import numpy as np
+
+    from poserisk_release_tpu_torch import pipeline
+    from poserisk_release_tpu_torch.device import resolve_device
+    from poserisk_release_tpu_torch.scoring import reba, rula
+    from poserisk_release_tpu_torch.scoring.common import frame_scores_chunked
+
+    module = {"REBA": reba, "RULA": rula}[scorer]
+    cls = getattr(module, f"{scorer}Scorer")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cls()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cls(debug=True, device="cuda")
+    assert cls(device="cpu").device == torch.device("cpu")
+    engine = getattr(module, f"{scorer.lower()}_frame_scores")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        frame_scores_chunked(engine, np.zeros((1, 24, 3)), np.zeros(1, np.int32))
+    assert pipeline.resolve_device is resolve_device
+
+
 def test_cli_accepts_debug_frame(monkeypatch, tmp_path):
     """--debug_frame is in the port now: it reaches the Predictor."""
     from poserisk_release_tpu_torch import pipeline

@@ -65,6 +65,6 @@ def test_scorer_matches_jax(title, info, dtype):
 def test_empty_clip_and_action_levels():
     for title, (jax_cls, port_cls) in ENGINES.items():
         info = {"REBA": DEFAULT_REBA, "RULA": DEFAULT_RULA}
-        assert port_cls()(np.zeros((0, 24, 3)), None, info) == []
+        assert port_cls(device="cpu")(np.zeros((0, 24, 3)), None, info) == []
         for s in np.arange(0.0, 16.5, 0.5):
             assert port_cls.action_level(s) == jax_cls.action_level(s), (title, s)

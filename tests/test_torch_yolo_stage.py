@@ -10,8 +10,10 @@ the int32 sums exactly and every f32 operation in the kernel's order, and
 measures 0 against the interpret-mode kernel, so the same 1e-4 is a loose
 bound here. pack_yolo_stage is exact: the same host arithmetic.
 
-The CUDA kernel runs only on a card; its comparison with the plain version
-(bit-equal) is marked `cuda` and skips here. The JAX package is imported
+The CUDA kernel runs only on a card; its comparisons with the plain version
+(bit-equal at every stage width, on ragged and full stage shapes, in bf16
+and f32, at one block and the stage's full count) are marked `cuda` and
+skip here. The JAX package is imported
 only by the tests that use it, so on a card's machine without jax:
 
     python -m pytest tests/test_torch_yolo_stage.py -m cuda --noconftest
@@ -27,6 +29,7 @@ from poserisk_release_tpu_torch.ops.yolo_stage import (
     fused_residual_stage_plain,
     pack_yolo_stage,
 )
+from poserisk_release_tpu_torch.tools.exp_fused_stage import STAGE_GEOM, stage_bound, stage_floor
 
 STAGE_START, STAGE_BLOCKS = 13, 8
 
@@ -113,29 +116,62 @@ def test_preserves_input_dtype_and_refuses_cpu_launch(port_qparams, dtype):
     assert fused_residual_stage_cuda.launches == before
 
 
-@pytest.fixture
-def cuda_device():
+def test_stage_floor_and_bound_at_batch_64():
+    """The design's byte floor per stage (the bf16 input read twice and the
+    output written once, the f32 stream between blocks, q written and read
+    once a block, aq once: 82 bytes an element over 8 blocks; the weights
+    once) and the operations bound, at the rect canvas, B = 64. The floor
+    is never below the bound, at B = 64 or B = 1."""
+    floors = {c: stage_floor(64, h, w, c, n, 2) for c, (_, n, h, w) in STAGE_GEOM.items()}
+    assert floors[256][1] == floors[512][1] == "bytes" and floors[1024][1] == "operations"
+    m_c, weights = 64 * 36 * 52 * 256, 8 * (5 * 256 * 256 + 12 * 256 + 8)
+    np.testing.assert_allclose(floors[256][0], (82 * m_c + weights) / 3.35e12 * 1e3, rtol=1e-9)
+    np.testing.assert_allclose([floors[c][0] for c in (256, 512, 1024)],
+                               [0.7515, 0.3785, 0.1587], rtol=1e-3)
+    bound = sum(stage_bound(64, h, w, c, n, 2)[0] for c, (_, n, h, w) in STAGE_GEOM.items())
+    np.testing.assert_allclose(bound, 0.794, rtol=1e-3)
+    for c, (_, n, h, w) in STAGE_GEOM.items():
+        for b in (1, 64):
+            assert stage_floor(b, h, w, c, n, 2)[0] >= stage_bound(b, h, w, c, n, 2)[0]
+
+
+@pytest.fixture(scope="module")
+def card_qparams():
+    """The seed-0 detector calibrated on the card, quantized whole tower."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the fused stage kernel has no CPU mode")
-    return torch.device("cuda")
+    from poserisk_release_tpu_torch.tools.exp_fused_stage import calibrated_qparams
+
+    return calibrated_qparams(_frames(), torch.device("cuda"))
+
+
+# Per stage width: a small shape whose M = B*H*W is a multiple of no tile,
+# and the stage's own H x W on the rect canvas at B = 2.
+STAGE_SHAPES = [(3, 7, 9, 256), (2, 36, 52, 256), (2, 5, 7, 512), (2, 18, 26, 512),
+                (1, 3, 5, 1024), (2, 9, 13, 1024)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("blocks", [1, STAGE_BLOCKS])
-def test_kernel_matches_plain_version(cuda_device, dtype, blocks):
+@pytest.mark.parametrize("full", [False, True], ids=["1block", "allblocks"])
+@pytest.mark.parametrize("shape", STAGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_version(card_qparams, shape, full, dtype):
     """Bit-equal: integer sums are exact on both sides and every float
     operation is rounded once, in the same order. The quantized params come
-    from the port alone (the seed-0 init calibrated on the card)."""
-    from poserisk_release_tpu_torch.tools.exp_fused_stage import calibrated_qparams
-
-    qparams = calibrated_qparams(_frames(), cuda_device)
-    pack = pack_yolo_stage(qparams, STAGE_START, blocks)
-    h = torch.as_tensor(_stream((3, 7, 9, 256), seed=1), device=cuda_device).to(dtype)
+    from the port alone (the seed-0 init calibrated on the card), with the
+    stage's spec start from STAGE_GEOM; one block or the stage's count."""
+    C = shape[-1]
+    start, n, _, _ = STAGE_GEOM[C]
+    blocks = n if full else 1
+    pack = pack_yolo_stage(card_qparams, start, blocks)
+    h = torch.as_tensor(_stream(shape, seed=C), device="cuda").to(dtype)
     before = fused_residual_stage_cuda.launches
     got = fused_residual_stage(h, pack, blocks)
     torch.cuda.synchronize()
-    assert fused_residual_stage_cuda.launches == before + 2 * blocks
+    # The quantize launch of the first block's q, then the 1x1 and the 3x3
+    # of each block.
+    assert fused_residual_stage_cuda.launches == before + 2 * blocks + 1
     want = fused_residual_stage_plain(h, pack, blocks)
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == h.shape
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
