@@ -348,14 +348,19 @@ def _taps_read(i0, i1, w0, w1) -> set:
         np.asarray(i1)[np.asarray(w1) != 0].tolist())
 
 
-def letterbox_crop_bytes(bboxes: np.ndarray, H: int, W: int, out_bytes: int) -> int:
-    """Bytes K2 must move at strides 1/1 on the rect canvas: each output
+def letterbox_crop_bytes(bboxes, H: int, W: int, out_bytes: int, rect: bool = True,
+                         n_frames: int = 0) -> int:
+    """Bytes K2 must move on the rect (or square) 416 canvas: each output
     written once, and per frame each source pixel that a nonzero letterbox
-    or crop tap reads, read once (the union of the two windows)."""
+    or crop tap reads, read once (the union of the two windows). bboxes
+    (n, 4) are the boxes of the frames the kernel reads (frames[::frame_stride]);
+    bboxes=None is the letterbox-only mode on n_frames frames."""
     from poserisk_release_tpu_torch.ops.crop import axis_taps, crop_coords, letterbox_taps
 
-    rows, cols, CH, CW = letterbox_taps(H, W, 416, True)
+    rows, cols, CH, CW = letterbox_taps(H, W, 416, rect)
     lr, lc = _taps_read(*rows), _taps_read(*cols)
+    if bboxes is None:
+        return n_frames * (CH * CW * 3 * out_bytes + len(lr) * len(lc) * 3)
     ys, xs = crop_coords(torch.as_tensor(bboxes, dtype=torch.float32), 1.2, OUT)
     total = bboxes.shape[0] * (CH * CW + OUT * OUT) * 3 * out_bytes
     for b in range(bboxes.shape[0]):
@@ -364,11 +369,41 @@ def letterbox_crop_bytes(bboxes: np.ndarray, H: int, W: int, out_bytes: int) -> 
     return total
 
 
+def k2_bound(bboxes, H: int, W: int, out_bytes: int, rect: bool = True,
+             n_frames: int = 0) -> tuple:
+    """(bound ms, 'bytes' | 'operations', bytes) of one K2 call:
+    letterbox_crop_bytes over the memory rate against ~10 f32 operations
+    per output value over the f32 rate."""
+    from poserisk_release_tpu_torch.ops.crop import canvas_geometry
+
+    CH, CW = canvas_geometry(H, W, 416, rect)[:2]
+    n = n_frames if bboxes is None else bboxes.shape[0]
+    n_bytes = letterbox_crop_bytes(bboxes, H, W, out_bytes, rect, n_frames)
+    n_flops = n * (CH * CW + (0 if bboxes is None else OUT * OUT)) * 3 * 10
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", n_bytes
+
+
+def edge_boxes(B: int, H: int, W: int, seed: int) -> np.ndarray:
+    """Tiny (upscaled crops), huge, partly and wholly outside the frame,
+    then random boxes, cycled over B frames."""
+    rng = np.random.RandomState(seed)
+    edge = [[W / 2, H / 2, 3.0, 2.0], [W / 3, H / 4, 0.5, 0.7], [W / 2, H / 2, 4 * W, 3 * H],
+            [-10.0, H + 5.0, 0.8 * W, 0.8 * H], [W - 5.0, 2.0, 90.0, 70.0],
+            [-5 * W, H / 2, 40.0, 40.0], [W / 2, 4 * H, 60.0, 60.0]]
+    rand = np.stack([rng.uniform(-60, W + 60, B), rng.uniform(-60, H + 60, B),
+                     rng.uniform(2, 1.5 * W, B), rng.uniform(2, 1.5 * H, B)], 1)
+    return np.concatenate([edge, rand])[:B].astype(np.float32)
+
+
 def check_letterbox_crop_kernel(device, main_frames, main_bboxes) -> dict:
     """K2 against its plain version on the card at every stride triple and
-    in both letterbox-only modes, then timings at the full-frame step's
-    strict shapes (one 64-frame chunk of tracked 450x800 frames, strides 1/1,
-    rect canvas, f32)."""
+    in both letterbox-only modes, then at other frame sizes (449x797:
+    unaligned rows; 240x320: upscaling; 1080x1920) with edge boxes and on a
+    batch slice from an odd frame; then timings at the main paths' four
+    shapes (tools/exp_k2_k4: one 64-frame chunk of tracked 450x800 frames;
+    f32 and bf16 at strides 1/1, bf16 at frame_stride 8, square f32
+    letterbox-only), each beside its bound."""
     import torch.nn.functional as F
 
     from poserisk_release_tpu_torch.ops.crop import GRAY, canvas_geometry, crop_coords, letterbox_plain
@@ -376,6 +411,7 @@ def check_letterbox_crop_kernel(device, main_frames, main_bboxes) -> dict:
         fused_letterbox_crop_cuda,
         fused_letterbox_crop_plain,
     )
+    from poserisk_release_tpu_torch.tools.exp_k2_k4 import k2_cases, k2_times
 
     frames, bboxes = check_inputs(device, seed=1)
     H, W = FRAME_HW
@@ -396,19 +432,41 @@ def check_letterbox_crop_kernel(device, main_frames, main_bboxes) -> dict:
         sync(device)
         errs["rect" if rect else "square"] = (float((got32 - want).abs().max()),
                                               float((got16.float() - want).abs().max()))
+    rng = np.random.RandomState(4)
+    for hw in ((449, 797), (240, 320), (1080, 1920)):
+        f = torch.as_tensor(rng.randint(0, 256, (9,) + hw + (3,)).astype(np.uint8), device=device)
+        bb = torch.as_tensor(edge_boxes(9, hw[0], hw[1], 5), device=device)
+        for rect in (True, False):  # the batch slice frames[1::2] starts at an odd frame
+            for ff, b in ((f, bb), (f[1::2], bb[1::2].contiguous())):
+                want = fused_letterbox_crop_plain(ff, b, rect=rect)
+                got32 = fused_letterbox_crop_cuda(ff, b, rect=rect)
+                got16 = fused_letterbox_crop_cuda(ff, b, rect=rect, out_dtype=torch.bfloat16)
+                sync(device)
+                key = f"{hw[0]}x{hw[1]}{'' if rect else ' square'}{' slice' if b is not bb else ''}"
+                errs[key] = (max(float((a - w).abs().max()) for a, w in zip(got32, want)),
+                             max(float((a.float() - w).abs().max()) for a, w in zip(got16, want)))
     err32 = max(e[0] for e in errs.values())
     err16 = max(e[1] for e in errs.values())
     print(json.dumps({"phase": "letterbox_crop_check", "frames": list(frames.shape),
                       "f32_bf16_max_abs_err": errs}))
-    if not err32 <= 1e-5:
+    if not err32 == 0.0:
         raise AssertionError(f"letterbox+crop kernel f32 disagrees with its plain version: {errs}")
     if not err16 <= 4.0 / 255.0:
         raise AssertionError(f"letterbox+crop kernel bf16 off by more than 4/255: {errs}")
 
     f = torch.as_tensor(main_frames[:CHUNK], device=device)
     bb = torch.as_tensor(main_bboxes[:CHUNK], dtype=torch.float32, device=device).contiguous()
-    ms = time_ms(lambda: fused_letterbox_crop_cuda(f, bb))
-    ms16 = time_ms(lambda: fused_letterbox_crop_cuda(f, bb, out_dtype=torch.bfloat16))
+    times = k2_times(f, bb)  # each case bit-equal to the plain version first
+    shapes = {}
+    for case, (kw, boxes) in k2_cases(f, bb).items():
+        g = kw.get("frame_stride", 1)
+        out_bytes = 2 if kw.get("out_dtype") == torch.bfloat16 else 4
+        bound_ms, bound_by, n_bytes = k2_bound(
+            None if boxes is None else main_bboxes[:CHUNK:g], H, W, out_bytes,
+            kw.get("rect", True), n_frames=-(-CHUNK // g))
+        shapes[case] = {"ms": times[case]["ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bytes": n_bytes, "share_of_bound": bound_ms / times[case]["ms"]}
+    ms = shapes["f32 1/1"]["ms"]
     plain_ms = time_ms(lambda: fused_letterbox_crop_plain(f, bb), reps=5, per_rep=2)
     # Yardstick only (the port never calls it): bilinear F.interpolate with
     # cv2's half-pixel rule (align_corners=False) into the content band of a
@@ -433,19 +491,15 @@ def check_letterbox_crop_kernel(device, main_frames, main_bboxes) -> dict:
     if not lib_err <= 1e-3:
         raise AssertionError(f"the library yardstick computes another function: {lib_err}")
     library_ms = time_ms(library)
-    n_bytes = letterbox_crop_bytes(main_bboxes[:CHUNK], H, W, 4)
-    n_flops = CHUNK * (CH * CW + OUT * OUT) * 3 * 10
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
     row = {"name": "fused_letterbox_crop_cuda", "route": "cuda",
            "source": "poserisk_release_tpu_torch/csrc/letterbox_crop.cu",
            "replaces": "poserisk_release_tpu/ops/resample_pallas.py:133",
            "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+           "bound_ms": shapes["f32 1/1"]["bound_ms"], "bound_by": shapes["f32 1/1"]["bound_by"],
+           "library_ms": library_ms}
     print(json.dumps({"phase": "letterbox_crop_timing", "shape": [CHUNK, H, W, 3],
-                      "canvas": [CH, CW], "bytes": n_bytes, "ms_f32": ms, "ms_bf16": ms16,
-                      "plain_ms": plain_ms, "library_ms": library_ms,
-                      "library_max_abs_err": lib_err, "bound_ms": row["bound_ms"]}))
+                      "canvas": [CH, CW], "shapes": shapes, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "library_max_abs_err": lib_err}))
     return row
 
 

@@ -20,131 +20,231 @@
 // cores (67 TFLOP/s): bytes bound at B = 1 (the debug mesh, ~5.6 us), bound
 // by operations at B = 64 (~12.5 us).
 //
-// Design: a block holds 8 vertices x 8 frames, one warp per vertex. The
-// frames' betas, pose_map and joint affines are staged in shared memory
-// (the affines at a padded stride, so the blend's reads are conflict-free).
-// The lanes of a warp split each of the vertex's three blend rows (217
-// contiguous floats: coalesced 128 B loads, conflict-free shared reads),
-// accumulate all 8 frames from each loaded value, and a butterfly
-// reduction leaves every lane with the posed position in every frame. Then
-// lane (f, c) = (lane / 4, lane % 4), c < 3, blends row c of the vertex's
-// 3x4 transform for frame f over the 24 joints and writes out_c. A first
-// version with one thread per vertex read each row alone, 2.5 KB apart
-// across a warp, and was latency-bound at B = 1 (PERF.md, K4).
+// Design: a block owns a slice of 8 consecutive vertices. It copies the
+// slice's rows of all four tables (21 KB, contiguous in each table) into
+// shared memory with 16-byte cp.async at once, the unaligned ends of a
+// region by 4-byte loads, so the whole table is in flight from the start:
+// 862 blocks at V = 6890, one wave. At B = 1 the bytes in flight, not the
+// arithmetic, set the time; a previous version read the tables with one
+// 128-byte load in flight a warp and was latency-bound (PERF.md, K4). The
+// block then walks the frames in tiles of kFrames (1 when B = 1, so no
+// register or FMA goes to frames that do not exist; else 8), copying each
+// tile's betas, pose features and joint affines (at a padded stride, so
+// the blend's reads are conflict-free) the same way while the slice stays
+// in shared memory: the tables are read once for every B. A warp takes a
+// vertex: its lanes split the vertex's three 217-float blend rows
+// (conflict-free shared reads) and accumulate every frame of the tile from
+// each loaded value; a halving reduction (reduce_to_frame) leaves lane
+// (f, c) with the posed position in frame f, and the lane blends row c of
+// the vertex's 3x4 transform over the 24 joints and writes out_c.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;    // vertices per block, one warp each
-constexpr int kFrames = 8;   // frames per block; 8 frames x 4 = 32 lanes
+constexpr int kWarps = 8;    // warps per block, one vertex each at a time
 constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void skin_kernel(const float* __restrict__ betas, const float* __restrict__ pose_map,
-                            const float* __restrict__ affines,
-                            const float* __restrict__ v_template,
-                            const float* __restrict__ shapedirs,
-                            const float* __restrict__ posedirs,
-                            const float* __restrict__ weights, float* __restrict__ out, int B,
-                            int V, int NB, int P, int J) {
-  extern __shared__ float smem[];
-  // A frame's affines start 12 J + 4 floats after the previous frame's: the
-  // 4 extra floats put lane (f, c)'s reads in 4 f + 3 c (mod 32), 24
-  // distinct banks, where a 12 J = 288 stride puts all 8 frames on one.
-  const int aff_stride = 12 * J + 4;
-  float* s_pose = smem;                   // kFrames x P
-  float* s_beta = s_pose + kFrames * P;   // kFrames x NB
-  float* s_aff = s_beta + kFrames * NB;   // kFrames x aff_stride
-  const int f0 = blockIdx.y * kFrames;
-  const int nf = min(kFrames, B - f0);
-  // Frames past the batch's end are staged as zeros and never written.
-  for (int i = threadIdx.x; i < kFrames * P; i += blockDim.x)
-    s_pose[i] = i < nf * P ? pose_map[(int64_t)f0 * P + i] : 0.0f;
-  for (int i = threadIdx.x; i < kFrames * NB; i += blockDim.x)
-    s_beta[i] = i < nf * NB ? betas[(int64_t)f0 * NB + i] : 0.0f;
-  for (int i = threadIdx.x; i < nf * J * 12; i += blockDim.x)
-    s_aff[(i / (J * 12)) * aff_stride + i % (J * 12)] = affines[(int64_t)f0 * J * 12 + i];
-  __syncthreads();
+// Floats of shared memory a region of n floats takes: 16 bytes of slack in
+// front, so the copy can keep the source's alignment mod 16.
+__host__ __device__ constexpr int region(int n) { return (n + 4 + 3) & ~3; }
 
-  const int lane = threadIdx.x & 31;
-  const int v = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (v >= V) return;  // whole warps only, after the block's last barrier
+__host__ __device__ constexpr int aff_stride(int J) { return 12 * J + 4; }
 
-  // Posed rest-space position in each frame of the tile, in every lane.
-  float pos[kFrames][3];
+// Vertices per block: 862 blocks at V = 6890, one wave (16 vertices were
+// level at B = 64 and 2% slower at B = 1).
+constexpr int kSlice = 8;
+
+__host__ __device__ constexpr int smem_floats(int frames, int NB, int P, int J) {
+  return region(kSlice * 3 * P) + region(kSlice * 3 * NB) + region(kSlice * J) +
+         region(kSlice * 3) + region(frames * P) + region(frames * NB) +
+         region(frames * aff_stride(J));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// Starts the copy of src[0, n) into the region at dst (16-byte aligned):
+// the floats land at dst + (src's float offset mod 4), which is returned.
+// The aligned interior goes in 16-byte cp.async copies, the ragged ends
+// by plain loads.
+__device__ __forceinline__ float* stage(float* dst, const float* __restrict__ src, int n) {
+  const int mis = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  float* out = dst + mis;
+  const int head = min((4 - mis) & 3, n);
+  const int chunks = (n - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) out[i] = __ldg(src + i);
+  for (int i = head + 4 * chunks + threadIdx.x; i < n; i += blockDim.x) out[i] = __ldg(src + i);
+  for (int j = threadIdx.x; j < chunks; j += blockDim.x)
+    cp_async16(out + head + 4 * j, src + head + 4 * j);
+  return out;
+}
+
+// One step of reduce_to_frame: lanes that differ in bit kBit exchange the
+// half of their 2 kHalf values the partner keeps, and each adds what it
+// receives to the half it keeps, now in v[0..kHalf).
+template <int kHalf, int kBit>
+__device__ __forceinline__ void halve(float (&v)[24], int lane) {
+  const bool upper = lane & kBit;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float keep = upper ? v[i + kHalf] : v[i];
+    const float send = upper ? v[i] : v[i + kHalf];
+    v[i] = keep + __shfl_xor_sync(kFull, send, kBit);
+  }
+}
+
+// Sums v[0..24) (v[3 f + c]: frame f, coordinate c of an 8-frame tile)
+// over the warp's lanes, leaving lane l with the three sums of frame
+// l / 4 in v[0..3): lane bits 4, 3, 2 pick frame bits 2, 1, 0, so
+// 12 + 6 + 3 + 6 shuffles instead of a butterfly's 120.
+__device__ __forceinline__ void reduce_to_frame(float (&v)[24], int lane) {
+  halve<12, 16>(v, lane);
+  halve<6, 8>(v, lane);
+  halve<3, 4>(v, lane);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float* sd = shapedirs + ((int64_t)v * 3 + c) * NB;
-    const float* pd = posedirs + ((int64_t)v * 3 + c) * P;
-    float acc[kFrames];
-#pragma unroll
-    for (int f = 0; f < kFrames; ++f) acc[f] = 0.0f;
-    for (int s = lane; s < NB; s += 32) {
-      const float d = sd[s];
-#pragma unroll
-      for (int f = 0; f < kFrames; ++f) acc[f] = fmaf(d, s_beta[f * NB + s], acc[f]);
-    }
-    for (int k = lane; k < P; k += 32) {
-      const float d = pd[k];
-#pragma unroll
-      for (int f = 0; f < kFrames; ++f) acc[f] = fmaf(d, s_pose[f * P + k], acc[f]);
-    }
-    const float t = v_template[(int64_t)v * 3 + c];
-#pragma unroll
-    for (int f = 0; f < kFrames; ++f) {
-      float a = acc[f];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(kFull, a, off);
-      pos[f][c] = t + a;
-    }
+    v[c] += __shfl_xor_sync(kFull, v[c], 2);
+    v[c] += __shfl_xor_sync(kFull, v[c], 1);
   }
+}
 
-  // Lane (f, c): row c of the blended 3x4 transform, applied in frame f.
-  const int f = lane >> 2;
-  const int c = lane & 3;
-  if (c == 3 || f >= nf) return;
-  float x = 0.0f, y = 0.0f, z = 0.0f;
+template <int kFrames>
+__global__ void __launch_bounds__(kWarps * 32) skin_kernel(
+    const float* __restrict__ betas, const float* __restrict__ pose_map,
+    const float* __restrict__ affines, const float* __restrict__ v_template,
+    const float* __restrict__ shapedirs, const float* __restrict__ posedirs,
+    const float* __restrict__ weights, float* __restrict__ out, int B, int V, int NB, int P,
+    int J) {
+  static_assert(kFrames == 1 || kFrames == 8, "frame tiles of 1 or 8");
+  extern __shared__ __align__(16) float smem[];
+  const int v0 = blockIdx.x * kSlice;
+  const int nv = min(kSlice, V - v0);
+  const int stride = aff_stride(J);
+  // (1) The slice's table rows, all in flight at once.
+  float* region_pd = smem;
+  float* region_sd = region_pd + region(kSlice * 3 * P);
+  float* region_w = region_sd + region(kSlice * 3 * NB);
+  float* region_t = region_w + region(kSlice * J);
+  float* region_pose = region_t + region(kSlice * 3);
+  float* region_beta = region_pose + region(kFrames * P);
+  float* region_aff = region_beta + region(kFrames * NB);
+  const float* s_pd = stage(region_pd, posedirs + (int64_t)v0 * 3 * P, nv * 3 * P);
+  const float* s_sd = stage(region_sd, shapedirs + (int64_t)v0 * 3 * NB, nv * 3 * NB);
+  const float* s_w = stage(region_w, weights + (int64_t)v0 * J, nv * J);
+  const float* s_t = stage(region_t, v_template + (int64_t)v0 * 3, nv * 3);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int f0 = 0; f0 < B; f0 += kFrames) {
+    const int nf = min(kFrames, B - f0);
+    // (2) The tile's per-frame inputs, by the same async copies (the
+    // affines at a padded stride; a frame's 12 J floats keep the alignment
+    // mod 16 of the first). Frames past the batch's end hold stale values
+    // and are never written.
+    if (f0 > 0) __syncthreads();  // the previous tile is done with them
+    const float* s_pose = stage(region_pose, pose_map + (int64_t)f0 * P, nf * P);
+    const float* s_beta = stage(region_beta, betas + (int64_t)f0 * NB, nf * NB);
+    const float* s_aff = region_aff;
+    for (int f = 0; f < nf; ++f)
+      s_aff = stage(region_aff + f * stride, affines + (int64_t)(f0 + f) * J * 12, J * 12) -
+              f * stride;
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    // (3) A warp per vertex: the posed position in every frame of the tile.
+    for (int vl = warp; vl < nv; vl += kWarps) {
+      float acc[3 * kFrames];
 #pragma unroll
-  for (int ff = 0; ff < kFrames; ++ff) {  // static indices keep pos in registers
-    if (ff == f) {
-      x = pos[ff][0];
-      y = pos[ff][1];
-      z = pos[ff][2];
+      for (int i = 0; i < 3 * kFrames; ++i) acc[i] = 0.0f;
+      const float* sd = s_sd + vl * 3 * NB;
+      const float* pd = s_pd + vl * 3 * P;
+      for (int s = lane; s < NB; s += 32) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float d = sd[c * NB + s];
+#pragma unroll
+          for (int f = 0; f < kFrames; ++f)
+            acc[3 * f + c] = fmaf(d, s_beta[f * NB + s], acc[3 * f + c]);
+        }
+      }
+      for (int k = lane; k < P; k += 32) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float d = pd[c * P + k];
+#pragma unroll
+          for (int f = 0; f < kFrames; ++f)
+            acc[3 * f + c] = fmaf(d, s_pose[f * P + k], acc[3 * f + c]);
+        }
+      }
+      // Lane (f, c): row c of the blended 3x4 transform, applied in frame f.
+      int f, c;
+      if constexpr (kFrames == 1) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) acc[i] += __shfl_xor_sync(kFull, acc[i], off);
+        f = 0;
+        c = lane;
+      } else {
+        reduce_to_frame(acc, lane);
+        f = lane >> 2;
+        c = lane & 3;
+      }
+      if (c < 3 && f < nf) {
+        const float x = s_t[vl * 3] + acc[0];
+        const float y = s_t[vl * 3 + 1] + acc[1];
+        const float z = s_t[vl * 3 + 2] + acc[2];
+        const float* w = s_w + vl * J;
+        const float* a = s_aff + f * stride;
+        float m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, m3 = 0.0f;
+        for (int j = 0; j < J; ++j) {
+          const float wj = w[j];
+          const float* aj = a + j * 12;
+          m0 = fmaf(wj, aj[3 * c], m0);
+          m1 = fmaf(wj, aj[3 * c + 1], m1);
+          m2 = fmaf(wj, aj[3 * c + 2], m2);
+          m3 = fmaf(wj, aj[9 + c], m3);
+        }
+        out[((int64_t)(f0 + f) * V + v0 + vl) * 3 + c] = m0 * x + m1 * y + m2 * z + m3;
+      }
+      __syncwarp();
     }
   }
-  const float* w = weights + (int64_t)v * J;
-  const float* a = s_aff + f * aff_stride;
-  float m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, m3 = 0.0f;
-  for (int j = 0; j < J; ++j) {
-    const float wj = w[j];
-    const float* aj = a + j * 12;
-    m0 = fmaf(wj, aj[3 * c], m0);
-    m1 = fmaf(wj, aj[3 * c + 1], m1);
-    m2 = fmaf(wj, aj[3 * c + 2], m2);
-    m3 = fmaf(wj, aj[9 + c], m3);
-  }
-  out[((int64_t)(f0 + f) * V + v) * 3 + c] = m0 * x + m1 * y + m2 * z + m3;
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Launches on `stream`, does not synchronise,
 // allocates nothing, and returns the cudaGetLastError() code of the launch
-// (0 on success).
+// (0 on success). Every pointer is a contiguous f32 array.
 extern "C" int skin_vertices_launch(const void* betas, const void* pose_map, const void* affines,
                                     const void* v_template, const void* shapedirs,
                                     const void* posedirs, const void* weights, void* out, int B,
                                     int V, int NB, int P, int J, void* stream) {
   if (B <= 0 || V <= 0) return 0;
-  const dim3 grid((V + kWarps - 1) / kWarps, (B + kFrames - 1) / kFrames);
-  const size_t smem = (size_t)kFrames * (P + NB + 12 * J + 4) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  skin_kernel<<<grid, kWarps * 32, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(betas), static_cast<const float*>(pose_map),
-      static_cast<const float*>(affines), static_cast<const float*>(v_template),
-      static_cast<const float*>(shapedirs), static_cast<const float*>(posedirs),
-      static_cast<const float*>(weights), static_cast<float*>(out), B, V, NB, P, J);
+  const int frames = B == 1 ? 1 : 8;
+  const size_t smem = (size_t)smem_floats(frames, NB, P, J) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // 38 KB for SMPL's tables
+  const dim3 grid((V + kSlice - 1) / kSlice);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const float* args[7] = {static_cast<const float*>(betas), static_cast<const float*>(pose_map),
+                          static_cast<const float*>(affines),
+                          static_cast<const float*>(v_template),
+                          static_cast<const float*>(shapedirs),
+                          static_cast<const float*>(posedirs), static_cast<const float*>(weights)};
+  if (frames == 1) {
+    skin_kernel<1><<<grid, kWarps * 32, smem, st>>>(args[0], args[1], args[2], args[3], args[4],
+                                                    args[5], args[6], static_cast<float*>(out),
+                                                    B, V, NB, P, J);
+  } else {
+    skin_kernel<8><<<grid, kWarps * 32, smem, st>>>(args[0], args[1], args[2], args[3], args[4],
+                                                    args[5], args[6], static_cast<float*>(out),
+                                                    B, V, NB, P, J);
+  }
   return (int)cudaGetLastError();
 }
 

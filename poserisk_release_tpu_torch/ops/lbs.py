@@ -28,9 +28,12 @@ from poserisk_release_tpu_torch.device import resolve_device
 from poserisk_release_tpu_torch.ops.rotations import axis_angle_to_rotmat_smpl
 
 
-def smpl_params_to_torch(model: SMPLModel, device="cpu") -> Dict[str, torch.Tensor]:
-    """Device-resident f32 parameter tables of the SMPL forward."""
+def smpl_params_to_torch(model: SMPLModel, device=None) -> Dict[str, torch.Tensor]:
+    """Device-resident f32 parameter tables of the SMPL forward, on the
+    caller's device, else CUDA (device.resolve_device: raises without CUDA
+    rather than putting them on the CPU)."""
     V = model.num_verts
+    device = resolve_device(device)
 
     def t(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -200,9 +200,9 @@ def _lib_k2():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.letterbox_crop_launch.argtypes = [
             p, ll, i, i,  # frames, frame_step, H, W
-            p, i, i,  # work, n_active, total_blocks
-            p, p, i, i, p, i,  # rows, cols, CH, CW, letter, det_stride
-            p, ll, p, i, ctypes.c_float, i,  # bboxes, bbox_step, crops, S, scale, crop_stride
+            p, i, i, i,  # table, n_bands, band_rows, slot_bytes
+            p, p, i, i, p,  # rows, cols, CH, CW, letter
+            p, ll, p, i, ctypes.c_float,  # bboxes, bbox_step, crops, S, scale
             i, p,  # out_bf16, stream
         ]
         lib.letterbox_crop_launch.restype = ctypes.c_int
@@ -211,7 +211,74 @@ def _lib_k2():
     return lib
 
 
-_THREADS = 256  # kThreads of letterbox_crop.cu
+K2_MAX_BAND = 8  # kMaxBand of letterbox_crop.cu: output rows of a band at most
+K2_SMEM_BUDGET = 40 * 1024  # a block's staged rows, bytes
+K2_SMEM_LIMIT = 232448 - 1024  # kMaxSmem: a block's dynamic shared memory on Hopper
+K2_STAGING = 256 * 12 * 4  # each warp's 32 runs of 12 f32 values (bf16: half)
+K2_BANDS_PER_SM = 16  # four waves of the four blocks an SM holds
+
+
+def k2_band_geometry(W: int):
+    """(R, slot_bytes, staged bytes) of K2 for W-pixel frames: a staged row
+    takes slot_bytes (W*3 plus the 24 bytes the kernel may read past it,
+    rounded up to 16), a block stages at most 2R rows, and R <= 8 keeps
+    them within K2_SMEM_BUDGET where one row pair fits it at all (R = 8 at
+    W = 800: with the store staging area, four blocks an SM)."""
+    slot = -(-(3 * W + 32) // 16) * 16
+    R = max(1, min(K2_MAX_BAND, K2_SMEM_BUDGET // (2 * slot)))
+    return R, slot, 2 * R * slot
+
+
+def k2_band_rows(W: int, CH: int, S: int, n_det: int, n_crop: int, n_sm: int) -> int:
+    """R for one launch: k2_band_geometry's, or 4 where that many rows a
+    band would leave fewer than K2_BANDS_PER_SM bands an SM for n_det
+    canvases of CH rows and n_crop crops of S rows (the fast step's 8
+    frames), so that the blocks still fill the card."""
+    R = k2_band_geometry(W)[0]
+    bands = n_det * -(-CH // R) + n_crop * -(-S // R)
+    return 4 if R > 4 and bands < K2_BANDS_PER_SM * n_sm else R
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def k2_band_plan(i0, i1, w0, w1):
+    """(lo, n) of the source rows a band of output rows with these row taps
+    stages: rows [lo, lo + n) when its nonzero-weight rows read at most two
+    rows per output row between them, n = -1 for two slots per output row
+    (i0 and i1 of each), (0, 0) when every row has both weights 0. The
+    kernel applies the same rule to crop bands."""
+    used = (np.asarray(w0) != 0) | (np.asarray(w1) != 0)
+    if not used.any():
+        return 0, 0
+    lo, hi = int(np.asarray(i0)[used].min()), int(np.asarray(i1)[used].max())
+    return (lo, hi - lo + 1) if hi - lo + 1 <= 2 * len(used) else (0, -1)
+
+
+def k2_block_table(H, W, img_size, rect, n_sub, det_stride, crop_stride, S, R) -> np.ndarray:
+    """K2's block table, (n_bands, 8) int32, one row per band and block:
+    sub-frame, kind (0 letterbox, 1 crop), first output row, rows, output index, and
+    for letterbox bands the staged rows (lo, n) of k2_band_plan. Sub-frame b
+    has letterbox bands of R canvas rows when b % det_stride == 0 and crop
+    bands of R crop rows when crop_stride and b % crop_stride == 0,
+    frame-major: a frame's letterbox bands, then its crop bands."""
+    from poserisk_release_tpu_torch.ops.crop import letterbox_taps
+
+    rows, _, CH, _ = letterbox_taps(H, W, img_size, rect)
+    lb = []
+    for r0 in range(0, CH, R):
+        taps = [t[r0:r0 + R] for t in rows]
+        lb.append([r0, len(taps[0]), *k2_band_plan(*taps)])
+    cb = [[r0, min(R, S - r0), 0, 0] for r0 in range(0, S, R)]
+    entries = []
+    for b in range(n_sub):
+        if b % det_stride == 0:
+            entries += [[b, 0, r0, n, b // det_stride, lo, k, 0] for r0, n, lo, k in lb]
+        if crop_stride and b % crop_stride == 0:
+            entries += [[b, 1, r0, n, b // crop_stride, 0, 0, 0] for r0, n, _, _ in cb]
+    return np.asarray(entries, np.int32).reshape(-1, 8)
 
 
 @functools.lru_cache(maxsize=16)
@@ -231,17 +298,10 @@ def _tap_tables(H, W, img_size, rect, device):
 
 
 @functools.lru_cache(maxsize=64)
-def _work_table(n_sub, det_stride, crop_stride, lb_blocks, crop_blocks, device):
-    """(table, n_active, total_blocks): the sub-frames that have an output,
-    then each one's first block, as one int32 device tensor (read only)."""
-    b = np.arange(n_sub)
-    has_lb = b % det_stride == 0
-    has_crop = (b % crop_stride == 0) if crop_stride else np.zeros(n_sub, bool)
-    active = has_lb | has_crop
-    blocks = (has_lb * lb_blocks + has_crop * crop_blocks)[active]
-    first = np.concatenate([[0], np.cumsum(blocks)])
-    table = np.concatenate([b[active], first]).astype(np.int32)
-    return torch.as_tensor(table, device=device), int(active.sum()), int(first[-1])
+def _block_table(H, W, img_size, rect, n_sub, det_stride, crop_stride, S, R, device):
+    """A device copy of k2_block_table, per geometry and strides (read only)."""
+    table = k2_block_table(H, W, img_size, rect, n_sub, det_stride, crop_stride, S, R)
+    return torch.as_tensor(table, device=device), table.shape[0]
 
 
 def fused_letterbox_crop_cuda(
@@ -277,6 +337,9 @@ def fused_letterbox_crop_cuda(
                          f"{crop_stride}, frame {frame_stride}")
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
+    _, slot, staged = k2_band_geometry(W)
+    if staged + K2_STAGING > K2_SMEM_LIMIT:
+        raise ValueError(f"a {W}-pixel row is too wide for the kernel's shared memory")
     crop = bboxes is not None
     if crop and (bboxes.device != frames_u8.device or bboxes.dtype != torch.float32
                  or tuple(bboxes.shape) != (B, 4) or not bboxes.is_contiguous()):
@@ -294,20 +357,18 @@ def fused_letterbox_crop_cuda(
     crops = (torch.empty((n_crop, S, S, 3), dtype=out_dtype, device=dev) if crop else None)
     if B == 0:
         return letter, crops
-    lb_blocks = -(-CH * CW // _THREADS)
-    crop_blocks = -(-S * S // _THREADS) if crop else 0
-    work, n_active, total_blocks = _work_table(
-        n_sub, det_stride, crop_stride if crop else 0, lb_blocks, crop_blocks, dev)
+    R = k2_band_rows(W, CH, S, n_det, n_crop if crop else 0, _sm_count(dev))
+    table, n_bands = _block_table(H, W, int(img_size), bool(rect), n_sub, det_stride,
+                                   crop_stride if crop else 0, S, R, dev)
     lib = _lib_k2()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.letterbox_crop_launch(
             frames_u8.data_ptr(), frames_u8.stride(0) * frame_stride, H, W,
-            work.data_ptr(), n_active, total_blocks,
-            rows.data_ptr(), cols.data_ptr(), CH, CW, letter.data_ptr(), det_stride,
-            bboxes.data_ptr() if crop else None, 4 * frame_stride,
+            table.data_ptr(), n_bands, R, slot, rows.data_ptr(), cols.data_ptr(), CH, CW,
+            letter.data_ptr(), bboxes.data_ptr() if crop else None, 4 * frame_stride,
             crops.data_ptr() if crop else None, S, float(scale),
-            crop_stride if crop else 0, int(out_dtype == torch.bfloat16), stream)
+            int(out_dtype == torch.bfloat16), stream)
     if code != 0:
         raise RuntimeError(
             f"letterbox+crop kernel launch failed: "

@@ -51,7 +51,7 @@ def setup():
     spin.eval()
     yolo_model = td.YoloV3.from_state_dict(
         yolo_params_to_state_dict(jax.tree_util.tree_map(np.asarray, yolo)))
-    smpl = smpl_params_to_torch(SMPLFamily(cfg.SPIN.smpl_model_dir)["neutral"])
+    smpl = smpl_params_to_torch(SMPLFamily(cfg.SPIN.smpl_model_dir)["neutral"], device="cpu")
     pr, pu = (torch.as_tensor(a) for a in default_packed_infos())
 
     rng = np.random.RandomState(3)

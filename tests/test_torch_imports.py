@@ -144,6 +144,18 @@ def test_scorers_without_device_raise_when_cuda_absent(no_cuda, scorer):
     assert pipeline.resolve_device is resolve_device
 
 
+def test_smpl_params_without_device_raise_when_cuda_absent(no_cuda):
+    """The SMPL tables follow resolve_device too: no quiet CPU default."""
+    from poserisk_release_tpu_torch.body.smpl import SMPLModel, synthetic_smpl_arrays
+    from poserisk_release_tpu_torch.ops.lbs import smpl_params_to_torch
+
+    model = SMPLModel.from_arrays(synthetic_smpl_arrays(seed=0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        smpl_params_to_torch(model)
+    params = smpl_params_to_torch(model, device="cpu")
+    assert {t.device.type for t in params.values()} == {"cpu"}
+
+
 def test_cli_accepts_debug_frame(monkeypatch, tmp_path):
     """--debug_frame is in the port now: it reaches the Predictor."""
     from poserisk_release_tpu_torch import pipeline

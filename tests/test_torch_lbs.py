@@ -166,7 +166,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 11, 64])
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 11, 64])
 def test_kernel_matches_plain_version(cuda_device, port_model, B):
     args = _skin_inputs(port_model, B, cuda_device, seed=B)
     before = skin_vertices_cuda.launches
@@ -176,6 +176,21 @@ def test_kernel_matches_plain_version(cuda_device, port_model, B):
     # Another summation order than the plain version's matmuls: f32
     # rounding of sums of ~220 terms of vertex scale ~1 m.
     torch.testing.assert_close(got, skin_vertices_plain(*args), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 9])
+def test_kernel_takes_tables_at_any_float_offset(cuda_device, port_model, B):
+    """Tables that start 4, 8 or 12 bytes past a 16-byte boundary: the
+    slices' ragged ends are copied by plain loads."""
+    args = list(_skin_inputs(port_model, B, cuda_device, seed=20 + B))
+    for i, off in ((3, 1), (4, 2), (5, 3), (6, 1)):  # template, shapedirs, posedirs, weights
+        t = args[i]
+        buf = torch.empty(t.numel() + off, device=cuda_device)
+        args[i] = buf[off:].view(t.shape).copy_(t)
+        assert args[i].data_ptr() % 16 == 4 * off
+    torch.testing.assert_close(skin_vertices_cuda(*args), skin_vertices_plain(*args),
+                               rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,8 @@ the CPU is not correctly rounded and moves JAX's sample positions by up to
 1e-5. bf16 outputs are held to 4/255, the bound the JAX package holds its
 own bf16 kernel to.
 
+K2's host-built block table (which bands of output rows each block takes,
+and which source rows a letterbox band stages) is checked here on the CPU.
 The kernel itself runs only on a CUDA card: its comparisons with the plain
 version are marked `cuda` and skip here (on the card:
 `python -m pytest tests/test_torch_letterbox.py -m cuda --noconftest`).
@@ -34,9 +36,14 @@ from poserisk_release_tpu_torch.ops.crop import (
     rect_canvas_geometry,
 )
 from poserisk_release_tpu_torch.ops.resample import (
+    K2_BANDS_PER_SM,
+    K2_SMEM_BUDGET,
     fused_letterbox_crop,
     fused_letterbox_crop_cuda,
     fused_letterbox_crop_plain,
+    k2_band_geometry,
+    k2_band_rows,
+    k2_block_table,
 )
 
 BBOXES = np.array(
@@ -210,6 +217,62 @@ def test_dispatch_on_cpu_is_the_plain_version_and_kernel_refuses_cpu():
     assert fused_letterbox_crop_cuda.launches == before
 
 
+TABLE_FRAMES = [(450, 800), (1080, 1920), (240, 320), (449, 797)]
+
+
+@pytest.mark.parametrize("rect", [False, True])
+@pytest.mark.parametrize("hw", TABLE_FRAMES)
+@pytest.mark.parametrize("n_sub, d, p", [(16, 1, 1), (8, 2, 1), (16, 1, 8), (13, 2, 4), (11, 3, 0)])
+def test_k2_block_table(hw, rect, n_sub, d, p):
+    """Every output row of every active sub-frame is in exactly one band, in
+    frame-major order; each letterbox band stages every row its taps read;
+    the staged rows fit the shared-memory budget."""
+    from poserisk_release_tpu_torch.ops.crop import letterbox_taps
+
+    H, W = hw
+    S = 224
+    R, slot, staged = k2_band_geometry(W)
+    assert 1 <= R <= 8 and slot % 16 == 0 and slot >= 3 * W + 24
+    assert staged == 2 * R * slot <= K2_SMEM_BUDGET
+    rows, _, CH, _ = letterbox_taps(H, W, 416, rect)
+    table = k2_block_table(H, W, 416, rect, n_sub, d, p, S, R)
+    sub, kind, row0, nrows, out, lo, n = (table[:, i] for i in range(7))
+    assert (np.diff(sub) >= 0).all()
+    assert all((np.diff(kind[sub == b]) >= 0).all() for b in range(n_sub))
+    assert ((nrows >= 1) & (nrows <= R)).all()
+    for k, stride, height in ((0, d, CH), (1, p, S)):
+        active = [b for b in range(n_sub) if stride and b % stride == 0]
+        sel = kind == k
+        assert sorted(set(sub[sel])) == active
+        assert (out[sel] == sub[sel] // max(stride, 1)).all()
+        for b in active:
+            covered = np.concatenate([np.arange(r, r + m) for r, m in
+                                      zip(row0[sel & (sub == b)], nrows[sel & (sub == b)])])
+            assert np.array_equal(np.sort(covered), np.arange(height))
+    i0, i1, w0, w1 = rows
+    for r, m, a, c in zip(row0[kind == 0], nrows[kind == 0], lo[kind == 0], n[kind == 0]):
+        used = (w0[r:r + m] != 0) | (w1[r:r + m] != 0)
+        read = np.concatenate([i0[r:r + m][used], i1[r:r + m][used]])
+        if c == 0:
+            assert not used.any()
+        elif c > 0:
+            assert c <= 2 * m and 0 <= a and a + c <= H
+            assert ((read >= a) & (read < a + c)).all()
+        else:
+            assert c == -1 and read.max() - read.min() + 1 > 2 * m
+
+
+@pytest.mark.parametrize("n_det, n_crop, want", [(64, 64, 8), (8, 8, 4), (64, 0, 8), (2, 0, 4)])
+def test_k2_band_rows_halves_r_only_when_bands_would_not_fill_the_card(n_det, n_crop, want):
+    """R = 8 at W = 800 unless that leaves fewer than K2_BANDS_PER_SM bands
+    an SM (132 SMs); wide frames keep their smaller R."""
+    assert k2_band_geometry(800)[0] == 8
+    assert k2_band_rows(800, 288, 224, n_det, n_crop, 132) == want
+    bands = n_det * -(-288 // want) + n_crop * -(-224 // want)
+    assert (bands >= K2_BANDS_PER_SM * 132) == (want == 8)
+    assert k2_band_rows(1920, 288, 224, 2, 2, 132) == k2_band_geometry(1920)[0] == 3
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -247,3 +310,37 @@ def test_letterbox_only_mode_matches_plain_version(cuda_device, rect):
     assert fused_letterbox_crop_cuda.launches == before + 1
     torch.testing.assert_close(got, letterbox_plain(frames[::2], 416, rect=rect),
                                rtol=0, atol=0)
+
+
+def _edge_boxes(B, H, W, seed):
+    """Tiny (upscaled crops), huge, partly and wholly outside the frame,
+    then random boxes, cycled over B frames."""
+    rng = np.random.RandomState(seed)
+    edge = [[W / 2, H / 2, 3.0, 2.0], [W / 3, H / 4, 0.5, 0.7], [W / 2, H / 2, 4 * W, 3 * H],
+            [-10.0, H + 5.0, 0.8 * W, 0.8 * H], [W - 5.0, 2.0, 90.0, 70.0],
+            [-5 * W, H / 2, 40.0, 40.0], [W / 2, 4 * H, 60.0, 60.0]]
+    rand = np.stack([rng.uniform(-60, W + 60, B), rng.uniform(-60, H + 60, B),
+                     rng.uniform(2, 1.5 * W, B), rng.uniform(2, 1.5 * H, B)], 1)
+    return np.concatenate([edge, rand])[:B].astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(449, 797), (240, 320), (1080, 1920)])
+def test_kernel_matches_plain_version_at_other_frame_sizes(cuda_device, hw, out_dtype):
+    """Unaligned rows (449x797), upscaling (240x320) and a downscale past 2
+    (1080x1920), with tiny, huge, partly and wholly outside boxes, in both
+    letterbox modes and on a batch slice starting at an odd frame."""
+    H, W = hw
+    frames = torch.as_tensor(_noise(9, hw, 13), device=cuda_device)
+    bb = torch.as_tensor(_edge_boxes(9, H, W, 14), device=cuda_device)
+    for rect in (True, False):
+        for f, b, g in ((frames, bb, 1), (frames[1::2], bb[1::2].contiguous(), 1),
+                        (frames[1:], bb[1:].contiguous(), 2)):
+            kw = dict(out_dtype=out_dtype, rect=rect, frame_stride=g)
+            got = fused_letterbox_crop_cuda(f, b, **kw)
+            only = fused_letterbox_crop_cuda(f, None, **kw)[0]
+            torch.cuda.synchronize()
+            want = fused_letterbox_crop_plain(f, b, **kw)
+            for a, w in zip(got + (only,), want + (want[0],)):
+                torch.testing.assert_close(a, w, rtol=0, atol=0)
