@@ -22,6 +22,12 @@ counter set to 0 just before it and read just after:
   64-frame chunks: strict f32 at strides 1/1 and fast bf16 at strides 8/8,
   both through the fused letterbox + crop kernel, each held against the
   unfused step;
+* the streaming scorer (streaming.StreamingScorer, --streaming) at full
+  width, window 64, fed by an in-memory window stream: two-pass at
+  pose_stride 1 (equal to the batch path's scores on 256 frames), at
+  pose_stride 2 and fast with the int8 backbone; online at detection_stride
+  4; score_all with two people (its shared union upload on the card); and
+  the device memory peak over 256 and 1024 frames, which must not grow;
 * the --debug_frame mesh: Predictor._save_debug_mesh (LBS on the card);
 * the int8 detector path (--fast_detector): YoloDetector(int8=True,
   rect=True) calibrated explicitly on the first 64 frames, then under
@@ -756,6 +762,242 @@ def debug_mesh(device, cfg, smpl, variables, aa, track_frames) -> dict:
     return row
 
 
+STREAM_FRAMES, STREAM_LONG, STREAM_SHORT = 256, 1024, 128
+
+
+class SyntheticStream:
+    """In-memory stand-in for io.video._window_stream (the card's machine
+    need not have opencv): the same items, ("meta", fps), ("window", start,
+    frames), ("end", total), each window made only when it is asked for.
+    Frame i is a smooth background, noise from RandomState(seed * 1000003 +
+    i) and a bright block moving 2 px a frame, so every pass (and the batch
+    reference) sees the same pixels and no pass holds the clip."""
+
+    def __init__(self, n_frames: int, seed: int = 7):
+        H, W = FRAME_HW
+        yy, xx = np.mgrid[0:H, 0:W]
+        base = 60 + 40 * np.sin(xx / 37.0) + 30 * np.cos(yy / 23.0)
+        self.base = np.repeat(base[:, :, None], 3, axis=2).astype(np.uint8)
+        self.n_frames, self.seed = n_frames, seed
+
+    def frames(self, start: int, n: int) -> np.ndarray:
+        H, W = FRAME_HW
+        out = np.empty((n, H, W, 3), np.uint8)
+        for k in range(n):
+            i = start + k
+            noise = np.random.RandomState(self.seed * 1000003 + i).randint(
+                0, 24, (H, W, 3), dtype=np.uint8)
+            np.add(self.base, noise, out=out[k])
+            x = 100 + (2 * i) % 400
+            out[k, 60:420, x:x + 180] = (180, 150, 120)
+        return out
+
+    def __call__(self, video_path, window, max_frames, workers=1):
+        total = self.n_frames if max_frames is None else min(self.n_frames, max_frames)
+        yield ("meta", 30.0)
+        for start in range(0, total, window):
+            yield ("window", start, self.frames(start, min(window, total - start)))
+        yield ("end", total)
+
+
+class ScriptedDetector:
+    """Cursor-scripted detector: per-frame detection lists served across
+    window-sized calls."""
+
+    def __init__(self, per_frame_dets):
+        self.dets = [np.asarray(d, np.float32).reshape(-1, 5) for d in per_frame_dets]
+        self.pos = 0
+
+    def __call__(self, frames):
+        out = self.dets[self.pos:self.pos + len(frames)]
+        self.pos += len(frames)
+        return [d.copy() for d in out]
+
+
+def streaming_path(device, variables, smpl, cfg) -> int:
+    """The bounded-memory StreamingScorer (streaming.py) at full width,
+    window = CHUNK, on SyntheticStream in place of the video decoder:
+    two-pass at pose_stride 1 (STREAM_FRAMES frames), at pose_stride 2 and
+    fast with the int8 backbone at pose_stride 2 (STREAM_SHORT), each equal
+    to the port's batch path on the same frames; online at detection_stride
+    4 with a scripted moving box (every frame between the first and last
+    detection scored, boxes those of interpolate_track_gaps); score_all
+    with two scripted people (equal to per-track batch runs, the union of a
+    window's frames uploaded once to the card); and the device memory peak
+    of the two-pass over STREAM_FRAMES and STREAM_LONG frames. Returns the
+    K1 launches of the streaming runs (not of their references)."""
+    from poserisk_release_tpu_torch import streaming
+    from poserisk_release_tpu_torch.models.detector import StubDetector
+    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
+    from poserisk_release_tpu_torch.pipeline import PoseEstimator, load_add_info
+    from poserisk_release_tpu_torch.scoring.reba import REBAScorer
+    from poserisk_release_tpu_torch.scoring.rula import RULAScorer
+    from poserisk_release_tpu_torch.tracking.mpt import (
+        MultiPersonTracker,
+        filter_and_select_target,
+        surviving_tracks,
+    )
+
+    info = load_add_info(cfg, "")
+    reba, rula = REBAScorer(device=device), RULAScorer(device=device)
+    launches, t_phase = [], time.perf_counter()
+    real_stream = streaming._window_stream
+
+    def drive(scorer, n_frames, method="__call__"):
+        """One counted streaming run over n_frames: (result, K1 launches,
+        host seconds)."""
+        streaming._window_stream = SyntheticStream(n_frames)
+        try:
+            sync(device)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = getattr(scorer, method)("synthetic.mp4", info)
+            sync(device)
+            seconds = time.perf_counter() - t0
+            launches.append(crop_batch_cuda.launches)
+        finally:
+            streaming._window_stream = real_stream
+        return result, launches[-1], seconds
+
+    def batch_scores(est, frames, track_frames, bboxes):
+        euler, joint_cam, _ = est.run_from_frames(frames, track_frames, bboxes, chunk=CHUNK)
+        return ([r["score"] for r in reba(euler, joint_cam, info)],
+                [r["score"] for r in rula(euler, joint_cam, info)])
+
+    def windows(det, n_frames, frames, stride=1):
+        return MultiPersonTracker(det, detection_stride=stride).track_windows(
+            (s, frames[s:s + CHUNK]) for s in range(0, n_frames, CHUNK))
+
+    def two_pass(n_frames, fast=False, spin_int8=False, pose_stride=1):
+        run_cfg = cfg.replace(SPIN={"pose_stride": pose_stride})
+        scorer = streaming.StreamingScorer(cfg=run_cfg, window=CHUNK, spin_variables=variables,
+                                           fast=fast, spin_int8=spin_int8, device=device)
+        result, k1, seconds = drive(scorer, n_frames)
+        frames = SyntheticStream(n_frames).frames(0, n_frames)
+        bboxes, track_frames = filter_and_select_target(
+            windows(StubDetector(), n_frames, frames), n_frames, cfg.DATASET.min_frame_ratio)
+        est = PoseEstimator(run_cfg, smpl, variables=variables, fast=fast, device=device)
+        if spin_int8:  # the streaming run's quantized backbone, handed over
+            est.load_quant_backbone(scorer.estimator.quant_params)
+        want = batch_scores(est, frames, track_frames, bboxes)
+        same = (result.frames == [int(f) for f in track_frames]
+                and (result.reba_scores, result.rula_scores) == want)
+        line = {"phase": "streaming_two_pass", "frames": n_frames, "pose_stride": pose_stride,
+                "fast": fast, "spin_int8": spin_int8, "k1_launches": k1, "seconds": seconds,
+                "streaming_frames_per_s": n_frames / seconds, "scored": len(result.frames),
+                "equal_to_batch_path": same}
+        print(json.dumps(line))
+        if not same:
+            raise AssertionError(f"streaming two-pass differs from the batch path: {line}")
+        return scorer
+
+    scorer = two_pass(STREAM_SHORT)  # warm-up, also held against the batch path
+    peaks = {}
+    for n in (STREAM_FRAMES, STREAM_LONG):
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        result, k1, seconds = drive(scorer, n)
+        peaks[n] = (torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda"
+                    else 0)
+        line = {"phase": "streaming_memory", "frames": n, "k1_launches": k1,
+                "seconds": seconds, "streaming_frames_per_s": n / seconds,
+                "max_memory_allocated": peaks[n]}
+        if n == STREAM_FRAMES:  # held against the batch path on the same frames
+            t0 = time.perf_counter()
+            frames = SyntheticStream(n).frames(0, n)
+            # Host seconds to make the frames once; the run made them once a
+            # pass, standing in for the decode.
+            line["make_frames_s"] = time.perf_counter() - t0
+            bboxes, track_frames = filter_and_select_target(
+                windows(StubDetector(), n, frames), n, cfg.DATASET.min_frame_ratio)
+            want = batch_scores(scorer.estimator, frames, track_frames, bboxes)
+            line["equal_to_batch_path"] = (
+                result.frames == [int(f) for f in track_frames]
+                and (result.reba_scores, result.rula_scores) == want)
+            del frames
+        print(json.dumps(line))
+        if not line.get("equal_to_batch_path", True):
+            raise AssertionError(f"streaming {n} frames differs from the batch path")
+    if peaks[STREAM_LONG] > 1.1 * peaks[STREAM_FRAMES]:
+        raise AssertionError(f"device memory grows with the clip: {peaks}")
+    two_pass(STREAM_SHORT, pose_stride=2)
+    two_pass(STREAM_SHORT, fast=True, spin_int8=True, pose_stride=2)
+
+    # Online, detection_stride 4: a box moving 2 px a frame, detected on
+    # every 4th frame; the two-pass tracker's interpolation is the reference.
+    n = STREAM_SHORT
+    dets = [[[150.0 + 2 * g, 60.0, 330.0 + 2 * g, 420.0, 0.9]] for g in range(0, n, 4)]
+    online_cfg = cfg.replace(DETECTOR={"detection_stride": 4})
+    scorer = streaming.StreamingScorer(cfg=online_cfg, detector=ScriptedDetector(dets),
+                                       window=CHUNK, spin_variables=variables,
+                                       selection="online", device=device)
+    boxes = {}
+    score_window = scorer._score_window
+
+    def spy(frames_, local_ids, bxs, start_idx, *args, **kwargs):
+        ids = kwargs.get("orig_local_ids")
+        for gid, box in zip(np.asarray(local_ids if ids is None else ids) + start_idx,
+                            np.asarray(bxs)):
+            boxes[int(gid)] = np.asarray(box, np.float64)
+        return score_window(frames_, local_ids, bxs, start_idx, *args, **kwargs)
+
+    scorer._score_window = spy
+    result, k1, seconds = drive(scorer, n)
+    track = next(iter(windows(ScriptedDetector(dets), n, np.zeros((n, 1, 1, 3), np.uint8),
+                              stride=4).values()))
+    want = {int(f): b for f, b in zip(track["frames"], track["bbox"])}
+    first, last = 0, 4 * ((n - 1) // 4)
+    box_err = max(float(np.abs(boxes[g] - want[g]).max()) for g in want) if (
+        sorted(boxes) == sorted(want)) else float("inf")
+    line = {"phase": "streaming_online", "frames": n, "detection_stride": 4, "k1_launches": k1,
+            "seconds": seconds, "scored": len(result.frames),
+            "scored_first_to_last_detection": result.frames == list(range(first, last + 1)),
+            "box_max_abs_diff_vs_interpolate_track_gaps": box_err}
+    print(json.dumps(line))
+    if not (line["scored_first_to_last_detection"] and box_err <= 1e-9):
+        raise AssertionError(f"online streaming: {line}")
+
+    # score_all: person A in the first 60% of the frames, B from frame 2 on.
+    dets = []
+    for i in range(n):
+        frame = [[120.0 + i, 60.0, 300.0 + i, 420.0, 0.9]] if i >= 2 else []
+        if i < int(0.6 * n):
+            frame.append([480.0, 20.0, 760.0, 440.0, 0.95])
+        dets.append(frame)
+    scorer = streaming.StreamingScorer(cfg=cfg, detector=ScriptedDetector(dets), window=CHUNK,
+                                       spin_variables=variables, device=device)
+    sources = []
+    run_chunked = scorer.estimator._run_chunked
+
+    def recording(num_items, host_chunk, step_fn, chunk=0):
+        part = host_chunk(0, 1)[0]
+        sources.append(part.device.type if isinstance(part, torch.Tensor) else "host")
+        return run_chunked(num_items, host_chunk, step_fn, chunk)
+
+    scorer.estimator._run_chunked = recording
+    results, k1, seconds = drive(scorer, n, "score_all")
+    frames = SyntheticStream(n).frames(0, n)
+    survivors = surviving_tracks(windows(ScriptedDetector(dets), n, frames), n,
+                                 cfg.DATASET.min_frame_ratio)
+    same = sorted(results) == sorted(survivors) and len(results) == 2 and all(
+        (results[pid].reba_scores, results[pid].rula_scores)
+        == batch_scores(scorer.estimator, frames, t["frames"], t["bbox"])
+        for pid, t in survivors.items())
+    line = {"phase": "streaming_score_all", "frames": n, "people": len(results),
+            "k1_launches": k1, "seconds": seconds, "equal_to_per_track_batch": same,
+            "union_upload_device": sorted(set(sources))}
+    print(json.dumps(line))
+    if not same:
+        raise AssertionError(f"score_all differs from per-track batch runs: {line}")
+    if torch.device(device).type not in sources:
+        raise AssertionError(f"score_all's shared union upload is not on {device}: {sources}")
+    print(json.dumps({"phase": "streaming_path", "seconds": time.perf_counter() - t_phase,
+                      "k1_launches": sum(launches)}))
+    if min(launches) <= 0:
+        raise AssertionError(f"a streaming run launched no crop kernel: {launches}")
+    return sum(launches)
+
+
 def int8_detector_path(device, frames):
     """--fast_detector: YoloDetector(int8=True, rect=True) on the seed-0
     init, calibrated explicitly on the first CHUNK frames; its int8 heads
@@ -1039,6 +1281,7 @@ def main() -> int:
     print(json.dumps({"phase": "tf32", "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
     main_path(device, frames, True, variables, smpl, cfg)
+    k1["launches"] += streaming_path(device, variables, smpl, cfg)
 
     k2_launches, yolo_sd = detector_path(device, frames)
     k2_launches += full_frame(device, frames, main_bboxes, yolo_sd, variables, smpl, cfg, False)

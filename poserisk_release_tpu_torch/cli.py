@@ -3,7 +3,8 @@
     python -m poserisk_release_tpu_torch.cli --type REBA,RULA --input video.mp4 \
         --info additional_information.json --output out [--gpu 0] \
         [--visualize] [--debug] [--debug_joints "Neck,L_Hip"] [--debug_frame N] [--cpu] \
-        [--fast] [--spin_int8] [--fast_detector] [--calibration frames.npy]
+        [--fast] [--spin_int8] [--fast_detector] [--calibration frames.npy] \
+        [--streaming [--streaming_window N]]
 
 Flags and defaults mirror the JAX package's cli.py (and the reference's
 main/run.py:10-20). `--gpu N` selects CUDA device N; `--cpu` runs on the
@@ -26,7 +27,6 @@ LATER_SLICE_FLAGS = {
     "sp": (1, "Queue 1 item 15 (torch.distributed mesh)"),
     "pp": (1, "Queue 1 item 15 (torch.distributed mesh)"),
     "ep": (1, "Queue 1 item 15 (torch.distributed mesh)"),
-    "streaming": (False, "Queue 1 item 12 (streaming scorer)"),
 }
 
 
@@ -102,8 +102,15 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in ("tp", "sp", "pp", "ep"):
         parser.add_argument(f"--{flag}", type=int, default=1, help=argparse.SUPPRESS)
     parser.add_argument("--pp_microbatches", type=int, default=4, help=argparse.SUPPRESS)
-    parser.add_argument("--streaming", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--streaming_window", type=int, default=256, help=argparse.SUPPRESS)
+    parser.add_argument("--streaming", action="store_true",
+                        help="bounded-memory long-video mode: two-pass "
+                             "reference-consistent target selection, peak "
+                             "host memory ~2 windows of frames; writes the "
+                             "result txts/plots and (with --visualize, the "
+                             "default) the annotated REBA/RULA videos, "
+                             "rendered incrementally window by window")
+    parser.add_argument("--streaming_window", type=int, default=256,
+                        help="frames per streaming window")
     return parser
 
 
@@ -172,6 +179,61 @@ def profile_report(timings: dict) -> str:
     return "\n".join(lines)
 
 
+def run_streaming(args, cfg, device: str) -> int:
+    """--streaming: StreamingScorer with the Predictor's detector policy,
+    info fallback and int8 calibration lifecycle, writing the
+    reference-format result files (one person_<id>/ directory per
+    surviving track under --multi_person)."""
+    from poserisk_release_tpu_torch.outputs.stats import print_result_summary
+    from poserisk_release_tpu_torch.pipeline import (
+        apply_explicit_calibration,
+        build_detector,
+        load_add_info,
+    )
+    from poserisk_release_tpu_torch.streaming import StreamingScorer
+
+    for flag in ("profile", "debug"):
+        if getattr(args, flag):
+            print(f"[streaming] --{flag} is ignored in streaming mode "
+                  "(use the batch path for stage timings / debug dumps)")
+    scorer = StreamingScorer(
+        cfg=cfg,
+        detector=build_detector(cfg, device),
+        window=args.streaming_window,
+        fast=args.fast,
+        spin_int8=args.spin_int8,
+        gender=args.gender,
+        validate_rotations=args.validate_rotations,
+        device=device,
+    )
+    # An explicit --calibration source derives the int8 scales before the
+    # first window could pin them, as in the batch Predictor.
+    apply_explicit_calibration(cfg, scorer.detector, scorer.estimator)
+    add_info = load_add_info(cfg, args.info)
+    for video, subdir in input_videos(args.input):
+        out = osp.join(args.output, subdir) if subdir else args.output
+        if args.multi_person:
+            per_person = scorer.score_all(
+                video, add_info, video_output=out if args.visualize else None,
+                video_types=args.type)
+            if not per_person:
+                raise ValueError("no person tracks found in the clip")
+            for pid, res in per_person.items():
+                person_out = osp.join(out, f"person_{pid}")
+                summary = scorer.write_outputs(res, person_out, score_type=args.type)
+                print(f"\n\n===> DONE! (streaming, person {pid})")
+                print("Result files saved in ", person_out)
+                print_result_summary(summary)
+            continue
+        result = scorer(video, add_info, video_output=out if args.visualize else None,
+                        video_types=args.type)
+        summary = scorer.write_outputs(result, out, score_type=args.type)
+        print("\n\n===> DONE! (streaming)")
+        print("Result files saved in ", out)
+        print_result_summary(summary)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -206,6 +268,8 @@ def main(argv=None) -> int:
 
     device = "cpu" if args.cpu else f"cuda:{args.gpu}"
     print("Work on device: ", device)
+    if args.streaming:
+        return run_streaming(args, cfg, device)
     predictor = Predictor(
         cfg=cfg,
         score_type=args.type,

@@ -6,9 +6,11 @@ the even-snapped track index idx//2*2 (base.py:312 quirk); 'Not detected
 target' on frames outside the track; green bbox drawn with the reference's
 corner math (vis_utils.py:278-294). Frames come from memory (no jpg re-read).
 
-Also the --debug_frame 3D skeleton figure (vis_3d_pose, vis_utils.py
-parity). Own copy of the JAX package's renderer. cv2 and matplotlib are
-imported inside the functions, so importing the module needs neither.
+ResultVideoWriter writes the video window by window (the streaming
+scorer's pass 2; render_result_video is its one-window case). Also the
+--debug_frame 3D skeleton figure (vis_3d_pose, vis_utils.py parity). Own
+copy of the JAX package's renderer. cv2 and matplotlib are imported inside
+the functions, so importing the module needs neither.
 """
 
 from __future__ import annotations
@@ -105,25 +107,54 @@ def render_result_video(
     output_path: str,
     title: str = "REBA",
 ) -> str:
-    import cv2
+    writer = ResultVideoWriter(output_path, title, fps, frames_rgb.shape[1:3], joint_names,
+                               timestamp[1], bboxes)
+    writer.write_window(frames_rgb, 0, scores, logs)
+    return writer.close()
 
-    height, width = frames_rgb.shape[1], frames_rgb.shape[2]
-    resize_w = 720
-    resize_h = int(height * resize_w / width)
-    canvas_w = resize_w + 280
-    canvas_h = resize_h
 
-    out_file = osp.join(output_path, title + "_video.mp4")
-    writer = cv2.VideoWriter(out_file, 0x7634706D, fps, (canvas_w, canvas_h))
-    track_frames = timestamp[1]
+class ResultVideoWriter:
+    """The annotated video written window by window (render_result_video is
+    one window of the whole clip): the reference's canvas, codec and file
+    name, with the track's scores/logs grown as windows are scored, as the
+    streaming scorer needs.
 
-    for i in range(frames_rgb.shape[0]):
-        writer.write(compose_result_frame(
-            frames_rgb[i], i, track_frames, bboxes, scores, joint_names,
-            logs, title,
-        ))
-    writer.release()
-    return out_file
+    Fed in windows, the bytes equal one whole-clip write:
+    compose_result_frame reads a track entry only at the even-snapped
+    position of the CURRENT frame (idx//2*2 snaps down), so a frame can be
+    written as soon as the window holding it has been scored."""
+
+    def __init__(self, output_path: str, title: str, fps: float,
+                 frame_hw, joint_names: Sequence[str],
+                 track_frames: np.ndarray, bboxes: np.ndarray):
+        import cv2
+
+        height, width = int(frame_hw[0]), int(frame_hw[1])
+        resize_w = 720
+        resize_h = int(height * resize_w / width)
+        self.out_file = osp.join(output_path, title + "_video.mp4")
+        self._writer = cv2.VideoWriter(
+            self.out_file, 0x7634706D, fps, (resize_w + 280, resize_h))
+        self._title = title
+        self._joint_names = joint_names
+        self._track_frames = np.asarray(track_frames)
+        self._bboxes = np.asarray(bboxes)
+
+    def write_window(self, frames_rgb: np.ndarray, start_idx: int,
+                     scores, logs) -> None:
+        """scores/logs: the track-so-far lists in frame order; they must
+        cover every track position up to this window's last selected frame,
+        which holds when each window is scored before it is written."""
+        scores = np.asarray(scores)
+        for k in range(frames_rgb.shape[0]):
+            self._writer.write(compose_result_frame(
+                frames_rgb[k], start_idx + k, self._track_frames,
+                self._bboxes, scores, self._joint_names, logs, self._title,
+            ))
+
+    def close(self) -> str:
+        self._writer.release()
+        return self.out_file
 
 
 SMPL_RIGHT_JOINTS = (2, 5, 8, 11, 14, 17, 19, 21, 23)

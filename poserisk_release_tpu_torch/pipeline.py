@@ -28,8 +28,8 @@ Both calibrate their activation scales on the first frames they see, or up
 front from DETECTOR.calibration (apply_explicit_calibration), and
 DETECTOR.recalibrate_per_video re-derives them for every video.
 
-Not in this slice (each raises rather than degrading): mesh parallelism and
-the streaming scorer.
+Not in this slice (it raises rather than degrading): mesh parallelism.
+The bounded-memory streaming scorer is streaming.StreamingScorer.
 """
 
 from __future__ import annotations
@@ -118,13 +118,20 @@ def load_spin_variables(cfg: Config) -> Dict[str, torch.Tensor]:
                             n_iter=cfg.SPIN.ief_iters)
 
 
-def _pad_to_multiple(x: np.ndarray, multiple: int) -> np.ndarray:
-    """Pad dim 0 up to a multiple by repeating the last row."""
+def _pad_to_multiple(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """Pad dim 0 up to a multiple by repeating the last row, on x's device."""
     n = x.shape[0]
     if multiple <= 1 or n % multiple == 0:
         return x
-    pad = multiple - n % multiple
-    return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+    return torch.cat([x, x[-1:].expand(multiple - n % multiple, *x.shape[1:])])
+
+
+def _gather_rows(x, ids: np.ndarray):
+    """x[ids] for a host array, or for a tensor on its own device (the
+    streaming scorer's shared per-window upload), never via the host."""
+    if isinstance(x, torch.Tensor):
+        return x[torch.as_tensor(ids, dtype=torch.long, device=x.device)]
+    return x[ids]
 
 
 def _check_single_device(cfg: Config) -> None:
@@ -275,18 +282,20 @@ class PoseEstimator:
             chunk,
         )
 
-    def run_from_frames(self, frames_rgb: np.ndarray, frame_ids: np.ndarray,
+    def run_from_frames(self, frames_rgb, frame_ids: np.ndarray,
                         bboxes: np.ndarray, chunk: int = 0):
         """Crop + pose straight from raw uint8 frames (the Predictor's
         production path): only the tracked uint8 frames go up, only
         angles/joints come back. Under pose_stride > 1 only every Nth
-        tracked frame is uploaded."""
+        tracked frame is uploaded. frames_rgb is a host array, or a tensor
+        already on the device, whose frames are then gathered and padded
+        there."""
         frame_ids = np.asarray(frame_ids)
         bboxes = np.asarray(bboxes, np.float32)
         if self.spin_needs_calibration and len(frame_ids):
             # The first 8 tracked frames' f32 crops calibrate the backbone.
             self._ensure_spin_quantized(crop_batch(
-                torch.as_tensor(frames_rgb[frame_ids[:8]], device=self.device),
+                torch.as_tensor(_gather_rows(frames_rgb, frame_ids[:8]), device=self.device),
                 torch.as_tensor(bboxes[:8], device=self.device),
                 scale=float(self.cfg.DATASET.bbox_scale),
                 out_size=int(self.cfg.MODEL.input_shape[0])))
@@ -294,7 +303,7 @@ class PoseEstimator:
         return self._run_chunked(
             len(frame_ids),
             lambda start, size: (
-                frames_rgb[frame_ids[start : start + size : stride]],
+                _gather_rows(frames_rgb, frame_ids[start : start + size : stride]),
                 bboxes[start : start + size : stride],
             ),
             self._pose_step_from_frames,
@@ -318,14 +327,15 @@ class PoseEstimator:
 
         def upload(start: int):
             # n_valid counts FRAMES (the step's output rows); under a pose
-            # stride the uploaded parts are the anchor subsample.
+            # stride the uploaded parts are the anchor subsample. A tensor
+            # part is padded on its own device; a host part goes up padded.
             n_valid = min(chunk, num_items - start)
-            batches = [
-                torch.from_numpy(_pad_to_multiple(np.ascontiguousarray(part),
-                                                  chunk // self._pose_stride))
-                .to(self.device, non_blocking=True)
-                for part in host_chunk(start, chunk)
-            ]
+            batches = []
+            for part in host_chunk(start, chunk):
+                if not isinstance(part, torch.Tensor):
+                    part = torch.from_numpy(np.ascontiguousarray(part))
+                batches.append(_pad_to_multiple(part, chunk // self._pose_stride)
+                               .to(self.device, non_blocking=True))
             return batches, n_valid
 
         eulers, jcams, aas = [], [], []

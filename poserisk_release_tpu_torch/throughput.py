@@ -131,8 +131,9 @@ def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: in
     fused_resample=True takes the letterbox AND the crop from one launch of
     K2, which reads only every g-th frame, g = gcd(det_stride, pose_stride),
     letterboxing every (det_stride/g)-th and cropping every
-    (pose_stride/g)-th of those. Without it the letterbox (K2's
-    letterbox-only mode on the card) and the crop (K1) run apart.
+    (pose_stride/g)-th of those; like the JAX step it takes the rect canvas
+    only (rect=False raises). Without it the letterbox (K2's letterbox-only
+    mode on the card) and the crop (K1) run apart.
     """
     from poserisk_release_tpu_torch.models.detector import yolo_forward
     from poserisk_release_tpu_torch.ops.crop import (
@@ -142,6 +143,8 @@ def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: in
     )
     from poserisk_release_tpu_torch.ops.resample import fused_letterbox_crop
 
+    if fused_resample and not rect:
+        raise ValueError("fused_resample implements the rect-canvas contract")
     if det_stride < 1 or pose_stride < 1:
         raise ValueError(f"strides must be >= 1, got det {det_stride}, pose {pose_stride}")
     pose_step = make_pose_and_score_step(parents, pose_stride=pose_stride,

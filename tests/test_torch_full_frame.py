@@ -101,3 +101,19 @@ def test_default_packed_infos_match_jax():
 
     for got, want in zip(default_packed_infos(), jax_infos()):
         np.testing.assert_array_equal(got, want)
+
+
+def test_fused_square_canvas_raises_like_jax(setup):
+    """The fused step takes the rect canvas only, in both packages: the
+    square fused mode gives an output no JAX function gives."""
+    from poserisk_release_tpu.throughput import make_full_frame_step as jax_step
+
+    _, _, (n_iter, est, _, _, _), (_, yolo_model, _, _, _, parents) = setup
+    messages = []
+    for build in (lambda: jax_step(n_iter, est.parents, rect=False, fused_resample=True),
+                  lambda: make_full_frame_step(parents, yolo_model=yolo_model, rect=False,
+                                               fused_resample=True)):
+        with pytest.raises(ValueError, match="rect-canvas contract") as exc:
+            build()
+        messages.append(str(exc.value))
+    assert messages[0] == messages[1]

@@ -39,7 +39,7 @@ def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     for mod in ("ops.resample", "ops.skin", "ops.lbs", "models.detector", "throughput",
                 "ops.qconv", "ops.yolo_stage", "models.resnet_int8", "tools.exp_fused_stage",
-                "tools.exp_window_crop"):
+                "tools.exp_window_crop", "streaming"):
         assert f"poserisk_release_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
@@ -90,16 +90,31 @@ def test_predictor_and_cli_without_device_raise_when_cuda_absent(no_cuda, tmp_pa
 
 
 @pytest.mark.parametrize("argv", [
-    ["--tp", "2"], ["--num_devices", "2"], ["--streaming"], ["--sp", "2"], ["--pp", "2"],
-    ["--ep", "2"],
+    ["--tp", "2"], ["--num_devices", "2"], ["--streaming", "--tp", "2"], ["--sp", "2"],
+    ["--pp", "2"], ["--ep", "2"],
 ])
 def test_cli_rejects_later_slice_flags(argv, capsys):
+    """The mesh flags are refused, with --streaming too (which is in the
+    port now: test_streaming_without_device_raises_when_cuda_absent)."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["--cpu"] + argv)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP" in err
-    assert ("item 12" in err) == (argv == ["--streaming"])
+    assert "ROADMAP" in err and "item 15" in err
+
+
+def test_streaming_without_device_raises_when_cuda_absent(no_cuda, tmp_path):
+    """The streaming scorer and --streaming follow resolve_device: CUDA
+    unless the CPU is named, never a quiet CPU default."""
+    from poserisk_release_tpu_torch.streaming import StreamingScorer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingScorer()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingScorer(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--streaming", "--input", str(tmp_path / "none.mp4"),
+                  "--output", str(tmp_path)])
 
 
 def test_tools_and_int8_entry_points_without_device_raise_when_cuda_absent(no_cuda):
