@@ -28,6 +28,10 @@ counter set to 0 just before it and read just after:
   pose_stride 2 and fast with the int8 backbone; online at detection_stride
   4; score_all with two people (its shared union upload on the card); and
   the device memory peak over 256 and 1024 frames, which must not grow;
+* the request-batching server (serving.PoseScoringServer, one CUDA graph
+  per bucket of the ladder 1/4/16/64) strict, fast and int8, each bucket
+  equal to the eager step; a closed loop of 16 clients; and three
+  StreamSessions on threads, equal to the online streaming scorer;
 * the --debug_frame mesh: Predictor._save_debug_mesh (LBS on the card);
 * the int8 detector path (--fast_detector): YoloDetector(int8=True,
   rect=True) calibrated explicitly on the first 64 frames, then under
@@ -998,6 +1002,364 @@ def streaming_path(device, variables, smpl, cfg) -> int:
     return sum(launches)
 
 
+SERVING_LADDER, SERVING_CLIENTS, SERVING_PER_CLIENT, SESSION_FRAMES = (1, 4, 16, 64), 16, 64, 32
+
+
+def events_ms(fn, n: int = 10) -> float:
+    """Milliseconds per fn() call over n back-to-back calls between two CUDA
+    events (after two warm-up calls): the rate the card sustains, host
+    pacing included, unlike time_ms, which enqueues while the card sleeps."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profile_replays(bucket, n: int = 5) -> tuple:
+    """torch.profiler over n replays of a bucket graph: (crop_kernel
+    records, kernel records, summed kernel microseconds), the last two per
+    replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            bucket.graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not any(k in e.name.lower() for k in ("memcpy", "memset"))]
+    return (sum("crop_kernel" in e.name for e in kernels), len(kernels) / n,
+            sum(e.time_range.elapsed_us() for e in kernels) / n)
+
+
+def serving_path(device, frames, bboxes, track_frames, variables, smpl, cfg) -> int:
+    """The request-batching server (serving.PoseScoringServer) and its
+    per-camera StreamSession at full width, frame_hw 450x800:
+
+    * strict f32, ladder 1/4/16/64 (one CUDA graph per bucket): b requests
+      submitted together fill bucket b; results equal the eager step at the
+      same shape (run_from_frames, chunk = b, + the scorers; Euler within
+      1e-4 deg); bucket 4's within 0.05 deg / 0.05 mm of the port's CPU path;
+      per bucket one replay against the eager step in CUDA-event time, and
+      torch.profiler's crop_kernel records over 5 replays;
+    * a closed loop of SERVING_CLIENTS threads x SERVING_PER_CLIENT requests:
+      requests/s, latency percentiles, the batch-fill histogram;
+    * three StreamSessions on threads over the strict server (detection
+      strides 1, 4, 4, scripted detectors): frames and scores equal the
+      online StreamingScorer's on the same frames;
+    * fast bf16 at bucket 16 against the eager fast step;
+    * spin_int8 with calibration_crops at buckets 1 and 4 against the eager
+      int8 step on the same quantized backbone;
+    * spin_int8 calibrated by its first real batch, captured anew while
+      three sessions push from their threads and a fourth thread runs eager
+      pose steps on the card; afterwards each bucket equals the eager int8
+      step.
+
+    Returns the K1 launches of the servers: eager warm-up runs before each
+    capture and the int8 calibration crop, plus those each replay launches
+    (a capture records the kernel and launches nothing:
+    ops/resample.crop_batch_cuda.captured). The references' and the
+    timings' launches are left out."""
+    import threading
+
+    from poserisk_release_tpu_torch import streaming
+    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
+    from poserisk_release_tpu_torch.pipeline import PoseEstimator, load_add_info
+    from poserisk_release_tpu_torch.scoring.reba import REBAScorer
+    from poserisk_release_tpu_torch.scoring.rula import RULAScorer
+    from poserisk_release_tpu_torch.serving import PoseScoringServer, StreamSession
+
+    cuda = torch.device(device).type == "cuda"
+    info = load_add_info(cfg, "")
+    t_phase = time.perf_counter()
+    req_frames = frames[track_frames]
+    req_boxes = np.asarray(bboxes, np.float32)
+    launches = []
+
+    def served(server, idx):
+        """Submit requests idx together; (results, the new batch fills)."""
+        before = len(server.stats()["batch_fill"])
+        futs = [server.submit(req_frames[i], req_boxes[i]) for i in idx]
+        return [f.result(timeout=300) for f in futs], server.stats()["batch_fill"][before:]
+
+    def uncounted(fn):
+        """fn() on the card with its K1 launches left out of the count: a
+        reference or a timing, not the server (called while the server is
+        idle)."""
+        before = crop_batch_cuda.launches
+        try:
+            return fn()
+        finally:
+            crop_batch_cuda.launches = before
+
+    def eager(est, idx, chunk):
+        euler, joint_cam, _ = uncounted(lambda: est.run_from_frames(
+            req_frames, np.asarray(idx), req_boxes[idx], chunk=chunk))
+        return ([r["score"] for r in REBAScorer(device=device)(euler, joint_cam, info)],
+                [r["score"] for r in RULAScorer(device=device)(euler, joint_cam, info)],
+                euler, joint_cam)
+
+    def against(results, want, bound=1e-4):
+        """(scores equal, largest Euler difference in deg) against an eager
+        reference."""
+        reba, rula, euler, _ = want
+        d = np.abs(np.stack([r.euler_deg for r in results]) - euler)
+        d = float(np.minimum(d, 360.0 - d).max())
+        same = [(r.reba, r.rula) for r in results] == list(zip(reba, rula))
+        return same and d <= bound, d
+
+    def ensure(ok, what):
+        if not ok:
+            raise AssertionError(f"serving_path: {what}")
+
+    # -- strict f32, the default ladder -----------------------------------
+    sync(device)
+    reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    server = PoseScoringServer(cfg=cfg, batch_sizes=SERVING_LADDER, max_delay_ms=500.0,
+                               frame_hw=FRAME_HW, spin_variables=variables, device=device)
+    build_s = time.perf_counter() - t0
+    memory = ({"allocated_before": mem0,
+               "allocated_by_server": torch.cuda.memory_allocated() - mem0,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()} if cuda else {})
+    line = {"phase": "serving_strict", "ladder": list(SERVING_LADDER), "build_and_capture_s":
+            build_s, "memory_after_captures": memory, "buckets": {}}
+    start = 0
+    for b in SERVING_LADDER:
+        idx = list(range(start, start + b))
+        start += b
+        results, fills = served(server, idx)
+        ok, d = against(results, eager(server.estimator, idx, b))
+        ensure(fills == [(b, b)], f"bucket {b} filled {fills}")
+        ensure(ok, f"bucket {b} differs from the eager step: euler {d} deg")
+        rec = {"fills": fills, "scores_equal_eager": ok, "euler_max_abs_diff_deg": d}
+        if cuda:
+            bucket = server._steps[b]
+            step = server._make_step()
+            with torch.inference_mode():
+                rec["replay_ms"] = events_ms(bucket.graph.replay)
+                rec["eager_step_ms"] = uncounted(lambda: events_ms(
+                    lambda: step(bucket.frames, bucket.boxes)))
+            n_prof = 5
+            rec["profiled_replays"] = n_prof
+            rec["crop_kernel_records"], rec["kernels_per_replay"], rec[
+                "replay_kernel_us"] = profile_replays(bucket, n_prof)
+            rec["k1_recorded_per_replay"] = bucket.k1_per_replay
+            # One K1 launch a replay: the capture recorded exactly one, and
+            # the profiler sees n records in n replays. In some processes on
+            # the card it lost a few kernel records in every session, one
+            # crop_kernel among them, so n - 1 also passes; two launches a
+            # replay would read 2n.
+            ensure(bucket.k1_per_replay == 1
+                   and n_prof - 1 <= rec["crop_kernel_records"] <= n_prof,
+                   f"bucket {b}: {bucket.k1_per_replay} K1 launches recorded, "
+                   f"{rec['crop_kernel_records']} crop_kernel records in {n_prof} replays")
+        if b == 4:  # the port's CPU path on the same 4 requests
+            cpu_est = PoseEstimator(cfg, smpl, variables=variables, device="cpu")
+            e, j, _ = cpu_est.run_from_frames(req_frames, np.asarray(idx), req_boxes[idx],
+                                              chunk=4)
+            d_e = np.abs(np.stack([r.euler_deg for r in results]) - e)
+            d_e = float(np.minimum(d_e, 360.0 - d_e).max())
+            d_j = float(np.abs(np.stack([r.joint_cam_mm for r in results]) - j).max())
+            same = all([r["score"] for r in scorer(e, None, info)] == [
+                getattr(r, name) for r in results] for name, scorer in (
+                ("reba", REBAScorer(device="cpu")), ("rula", RULAScorer(device="cpu"))))
+            rec.update(cpu_ref_euler_max_abs_diff_deg=d_e, cpu_ref_joint_max_abs_diff_mm=d_j,
+                       cpu_ref_scores_equal=same)
+            ensure(d_e < 0.05 and d_j < 0.05 and same, f"card vs CPU path: {rec}")
+        line["buckets"][b] = rec
+    print(json.dumps(line))
+
+    # -- closed-loop load ----------------------------------------------------
+    server.max_delay_s = 0.003  # the constructor's default deadline
+    before = len(server.stats()["batch_fill"])
+    lat, errors = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        try:
+            for k in range(SERVING_PER_CLIENT):
+                i = (c * SERVING_PER_CLIENT + k) % len(req_frames)
+                t0 = time.perf_counter()
+                server.score(req_frames[i], req_boxes[i], timeout=300)
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+        except Exception as exc:  # reported below
+            errors.append(repr(exc))
+
+    clients = [threading.Thread(target=client, args=(c,)) for c in range(SERVING_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    fills = server.stats()["batch_fill"][before:]
+    hist = {}
+    for n, b in fills:
+        hist[f"{n}/{b}"] = hist.get(f"{n}/{b}", 0) + 1
+    lat_ms = np.asarray(lat) * 1e3
+    n_req = SERVING_CLIENTS * SERVING_PER_CLIENT
+    line = {"phase": "serving_load", "clients": SERVING_CLIENTS, "requests": len(lat),
+            "seconds": seconds, "requests_per_s": len(lat) / seconds,
+            "latency_ms": {p: float(np.percentile(lat_ms, q)) for p, q in (
+                ("p50", 50), ("p95", 95), ("p99", 99))} if len(lat) else None,
+            "batches": len(fills), "mean_fill": float(np.mean([n for n, _ in fills])),
+            "batch_fill_histogram": hist, "errors": errors[:3]}
+    print(json.dumps(line))
+    ensure(len(lat) == n_req and not errors, f"closed loop: {line}")
+
+    # -- three StreamSessions over the strict server -------------------------
+    server.max_delay_s = 0.002
+    cams = [("cam0", 1, 150.0), ("cam1", 4, 90.0), ("cam2", 4, 300.0)]
+    clips = {name: SyntheticStream(SESSION_FRAMES, seed=11 + k).frames(0, SESSION_FRAMES)
+             for k, (name, _, _) in enumerate(cams)}
+
+    def scripted(stride, x0):
+        return [[[x0 + 2 * g, 60.0, x0 + 180 + 2 * g, 420.0, 0.9]]
+                for g in range(0, SESSION_FRAMES, stride)]
+
+    def feed(sessions, futures, name):
+        for frame in clips[name]:
+            futures[name].extend(sessions[name].push(frame))
+
+    def run_sessions(srv, sessions, extra=()):
+        futures = {name: [] for name, _, _ in cams}
+        threads = [threading.Thread(target=feed, args=(sessions, futures, name))
+                   for name, _, _ in cams] + list(extra)
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        return {name: [(i, f.result(timeout=300)) for i, f in futs]
+                for name, futs in futures.items()}
+
+    sessions = {name: StreamSession(server, detector=ScriptedDetector(scripted(s, x0)),
+                                    detection_stride=s, ring_capacity=16)
+                for name, s, x0 in cams}
+    got = run_sessions(server, sessions)
+    same = {}
+    real_stream = streaming._window_stream
+    try:
+        for k, (name, s, x0) in enumerate(cams):
+            streaming._window_stream = SyntheticStream(SESSION_FRAMES, seed=11 + k)
+            online = uncounted(lambda: streaming.StreamingScorer(
+                cfg=cfg.replace(DETECTOR={"detection_stride": s}),
+                detector=ScriptedDetector(scripted(s, x0)), window=16,
+                spin_variables=variables, selection="online", device=device)("s.mp4", info))
+            same[name] = ([i for i, _ in got[name]] == online.frames
+                          and [r.reba for _, r in got[name]] == online.reba_scores
+                          and [r.rula for _, r in got[name]] == online.rula_scores)
+    finally:
+        streaming._window_stream = real_stream
+    line = {"phase": "serving_sessions", "cameras": len(cams), "frames": SESSION_FRAMES,
+            "scored": {n: len(v) for n, v in got.items()}, "equal_to_online_streaming": same}
+    print(json.dumps(line))
+    ensure(all(same.values()), f"sessions differ from the online streaming scorer: {line}")
+    server.close()
+    launches.append(crop_batch_cuda.launches)
+    replays = [server.graph_replays]
+
+    # -- fast bf16, one bucket -------------------------------------------------
+    reset_launch_counts()
+    with PoseScoringServer(cfg=cfg, batch_sizes=(16,), max_delay_ms=500.0, frame_hw=FRAME_HW,
+                           fast=True, spin_variables=variables, device=device) as fast:
+        idx = list(range(16))
+        results, fills = served(fast, idx)
+        ok, d = against(results, eager(fast.estimator, idx, 16))
+    launches.append(crop_batch_cuda.launches)
+    replays.append(fast.graph_replays)
+    print(json.dumps({"phase": "serving_fast", "bucket": 16, "fills": fills,
+                      "scores_equal_eager": ok, "euler_max_abs_diff_deg": d}))
+    ensure(fills == [(16, 16)] and ok, f"fast bucket 16 vs eager: euler {d} deg")
+
+    # -- spin_int8 with calibration_crops, buckets 1 and 4 -------------------
+    from poserisk_release_tpu_torch.ops.crop import crop_batch
+
+    calib = crop_batch(torch.as_tensor(req_frames[:8], device=device),
+                       torch.as_tensor(req_boxes[:8], device=device)).cpu().numpy()
+    reset_launch_counts()
+    int8_line = {"phase": "serving_int8_calibration_crops", "buckets": {}}
+    with PoseScoringServer(cfg=cfg, batch_sizes=(1, 4), max_delay_ms=500.0, frame_hw=FRAME_HW,
+                           spin_int8=True, calibration_crops=calib, spin_variables=variables,
+                           device=device) as q8:
+        # The eager reference runs on the server's own estimator: the same
+        # quantized backbone.
+        for b, idx in ((1, [20]), (4, list(range(24, 28)))):
+            results, fills = served(q8, idx)
+            ok, d = against(results, eager(q8.estimator, idx, b))
+            int8_line["buckets"][b] = {"fills": fills, "scores_equal_eager": ok,
+                                       "euler_max_abs_diff_deg": d}
+            ensure(fills == [(b, b)] and ok, f"int8 bucket {b} vs eager: euler {d} deg")
+    launches.append(crop_batch_cuda.launches)
+    replays.append(q8.graph_replays)
+    print(json.dumps(int8_line))
+
+    # -- spin_int8 calibrated mid-traffic, with other threads on the card ----
+    reset_launch_counts()
+    q8 = PoseScoringServer(cfg=cfg, batch_sizes=(1, 4), max_delay_ms=2.0, frame_hw=FRAME_HW,
+                           spin_int8=True, spin_variables=variables, device=device)
+    ensure(q8.estimator.spin_needs_calibration, "warm-up calibrated the int8 backbone")
+    stop = threading.Event()
+    busy = {"steps": 0}
+    other = PoseEstimator(cfg, smpl, variables=variables, device=device)
+
+    def card_work():  # eager pose steps with host read-backs, on the default stream
+        f = torch.as_tensor(req_frames[:8], device=device)
+        bb = torch.as_tensor(req_boxes[:8], device=device)
+        with torch.inference_mode():
+            while not stop.is_set():
+                float(other._pose_step_from_frames(f, bb)[0].sum())
+                busy["steps"] += 1
+
+    worker = threading.Thread(target=card_work)
+    sessions = {name: StreamSession(q8, detector=ScriptedDetector(scripted(s, x0)),
+                                    detection_stride=s, ring_capacity=16)
+                for name, s, x0 in cams}
+    worker.start()
+    try:
+        got = run_sessions(q8, sessions)
+    finally:
+        stop.set()
+        worker.join(timeout=120)
+    after = {}
+    n = len(req_frames)
+    for b, idx in ((1, [n - 5]), (4, list(range(n - 4, n)))):
+        results, fills = served(q8, idx)
+        ok, d = against(results, eager(q8.estimator, idx, b))
+        after[b] = {"scores_equal_eager": ok, "euler_max_abs_diff_deg": d}
+        ensure(ok, f"int8 bucket {b} captured mid-traffic differs from eager: euler {d} deg")
+    line = {"phase": "serving_int8_mid_traffic", "calibrated": not
+            q8.estimator.spin_needs_calibration, "scored": {n: len(v) for n, v in got.items()},
+            "other_thread_pose_steps": busy["steps"], "after": after,
+            "graph_replays": q8.graph_replays}
+    q8.close()
+    # The other thread's pose steps launched K1 once each: not the server's.
+    launches.append(crop_batch_cuda.launches - busy["steps"])
+    replays.append(q8.graph_replays)
+    print(json.dumps(line))
+    ensure(line["calibrated"] and all(len(v) > 0 for v in got.values()),
+           f"int8 mid-traffic: {line}")
+
+    # Each replay launches K1 once (k1_recorded_per_replay, and the profiler
+    # above); the rest of each server's count is its eager warm-up runs
+    # before a capture and its int8 calibration crop.
+    print(json.dumps({"phase": "serving_path", "seconds": time.perf_counter() - t_phase,
+                      "k1_launches": launches, "graph_replays": replays}))
+    ensure(min(launches) > 0 and min(replays) > 0, "a serving run launched no crop kernel")
+    return sum(launches)
+
+
 def int8_detector_path(device, frames):
     """--fast_detector: YoloDetector(int8=True, rect=True) on the seed-0
     init, calibrated explicitly on the first CHUNK frames; its int8 heads
@@ -1259,7 +1621,7 @@ def main() -> int:
     from poserisk_release_tpu_torch.tracking.mpt import MultiPersonTracker, filter_and_select_target
 
     tracks = MultiPersonTracker(StubDetector())(frames)
-    main_bboxes, _ = filter_and_select_target(tracks, len(frames), 0.33)
+    main_bboxes, main_track_frames = filter_and_select_target(tracks, len(frames), 0.33)
     main_bboxes = np.asarray(main_bboxes, np.float32)
     k1 = check_crop_kernel(device, frames, main_bboxes)
     k2 = check_letterbox_crop_kernel(device, frames, main_bboxes)
@@ -1282,6 +1644,8 @@ def main() -> int:
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
     main_path(device, frames, True, variables, smpl, cfg)
     k1["launches"] += streaming_path(device, variables, smpl, cfg)
+    k1["launches"] += serving_path(device, frames, main_bboxes, main_track_frames, variables,
+                                   smpl, cfg)
 
     k2_launches, yolo_sd = detector_path(device, frames)
     k2_launches += full_frame(device, frames, main_bboxes, yolo_sd, variables, smpl, cfg, False)

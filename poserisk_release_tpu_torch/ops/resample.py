@@ -23,7 +23,8 @@ The TPU kernels resample through tap matrices on the matrix unit; the
 sources' headers state the gather design and the bound. Each builds with
 nvcc at first use (_build.py) and is bound through ctypes. Each wrapper's
 `.launches` counts its kernel launches in this process, so a run can show
-that its resamples went through the kernels.
+that its resamples went through the kernels; K1's also counts the launches
+it records into a CUDA graph apart, in `.captured`.
 """
 
 from __future__ import annotations
@@ -93,17 +94,24 @@ def crop_batch_cuda(
     lib = _lib()
     with torch.cuda.device(frames_u8.device):
         stream = torch.cuda.current_stream().cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         code = lib.crop_batch_launch(
             frames_u8.data_ptr(), bboxes.data_ptr(), out.data_ptr(),
             B, H, W, int(out_size), float(scale), int(out_dtype == torch.bfloat16), stream)
     if code != 0:
         raise RuntimeError(
             f"crop kernel launch failed: {lib.crop_error_string(code).decode()}")
-    crop_batch_cuda.launches += 1
+    if capturing:
+        # Recorded into a CUDA graph, not launched: the graph's owner adds
+        # the recorded launches to `.launches` on every replay
+        # (serving._BucketGraph).
+        crop_batch_cuda.captured += 1
+    else:
+        crop_batch_cuda.launches += 1
     return out
 
 
-crop_batch_cuda.launches = 0
+crop_batch_cuda.launches = crop_batch_cuda.captured = 0
 
 
 # ---------------------------------------------------------------------------

@@ -13,14 +13,31 @@ from poserisk_release_tpu_torch.device import resolve_device
 def chain(branches: Sequence[Tuple[torch.Tensor, object]], default) -> torch.Tensor:
     """Vectorised if/elif/else: the first true branch wins, like Python's
     chain. `branches` is an ordered list of (condition, value) pairs with
-    int or int-tensor values; `default` is the else value. Several reference
-    rules rely on earlier branches shadowing later, overlapping ones, so the
-    selects apply from the last branch back to the first."""
+    int or int32-tensor values; `default` is the else value. Several
+    reference rules rely on earlier branches shadowing later, overlapping
+    ones, so the selects apply from the last branch back to the first.
+
+    Python ints enter as a fill and as scalar operands of torch.where, never
+    as tensors made on the host, so the engine copies nothing from the host
+    and a CUDA graph can capture it."""
     cond0 = branches[0][0]
-    out = torch.as_tensor(default, dtype=torch.int32, device=cond0.device).expand(cond0.shape)
+    out = torch.full(cond0.shape, default, dtype=torch.int32, device=cond0.device)
     for cond, value in reversed(branches):
-        value = torch.as_tensor(value, dtype=torch.int32, device=cond0.device)
         out = torch.where(cond, value, out)
+    return out
+
+
+_DEVICE_TABLES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def device_table(table: np.ndarray, device) -> torch.Tensor:
+    """A rule table (a module-level constant of scoring.tables) on `device`,
+    copied there once per device and kept: the engines read it on every call
+    without a host-to-device copy."""
+    key = (id(table), torch.device(device))
+    out = _DEVICE_TABLES.get(key)
+    if out is None:
+        out = _DEVICE_TABLES.setdefault(key, torch.as_tensor(table, device=device))
     return out
 
 

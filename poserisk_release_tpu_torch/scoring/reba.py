@@ -33,7 +33,12 @@ import torch
 from poserisk_release_tpu_torch.body.smpl import JOINT_INDEX
 from poserisk_release_tpu_torch.device import resolve_device
 from poserisk_release_tpu_torch.scoring import tables
-from poserisk_release_tpu_torch.scoring.common import chain, frame_scores_chunked, table_gather
+from poserisk_release_tpu_torch.scoring.common import (
+    chain,
+    device_table,
+    frame_scores_chunked,
+    table_gather,
+)
 
 EVAL_ITEMS = ["Trunk", "Neck", "Leg", "Upper_arm (L,R)", "Lower_arm (L,R)", "Wrist (L,R)"]
 
@@ -52,10 +57,6 @@ INFO_KEYS = (
 def pack_info(add_info: Dict) -> np.ndarray:
     info = add_info["REBA"] if "REBA" in add_info else add_info
     return np.array([info[k] for k in INFO_KEYS], np.int32)
-
-
-def _table(table: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(table, device=device)
 
 
 def _trunk_bending(a):
@@ -293,7 +294,8 @@ def reba_frame_scores(euler_deg: torch.Tensor, info: torch.Tensor) -> Dict[str, 
     trunk = torch.clamp(trunk, 1, 5)
     neck = torch.clamp(neck, 1, 3)
     leg = torch.clamp(leg, 1, 4)
-    group_a = table_gather(_table(tables.REBA_TABLE_A, e.device), trunk - 1, neck - 1, leg - 1)
+    group_a = table_gather(device_table(tables.REBA_TABLE_A, e.device),
+                           trunk - 1, neck - 1, leg - 1)
     group_a = group_a + load_force
 
     ub_l, ub_r = _upper_arm_bending(
@@ -331,14 +333,15 @@ def reba_frame_scores(euler_deg: torch.Tensor, info: torch.Tensor) -> Dict[str, 
         3,
     )
 
-    table_b = _table(tables.REBA_TABLE_B, e.device)
+    table_b = device_table(tables.REBA_TABLE_B, e.device)
     group_b_l = table_gather(table_b, upper_l - 1, lower_l - 1, wrist_l - 1)
     group_b_r = table_gather(table_b, upper_r - 1, lower_r - 1, wrist_r - 1)
     group_b = torch.maximum(group_b_l, group_b_r) + coupling
 
     score_a = torch.clamp(group_a, 1, 12)
     score_b = torch.clamp(group_b, 1, 12)
-    final = table_gather(_table(tables.REBA_TABLE_C, e.device), score_a - 1, score_b - 1) + activity
+    final = table_gather(device_table(tables.REBA_TABLE_C, e.device),
+                         score_a - 1, score_b - 1) + activity
 
     return {
         "trunk": trunk,

@@ -25,7 +25,12 @@ import torch
 from poserisk_release_tpu_torch.body.smpl import JOINT_INDEX
 from poserisk_release_tpu_torch.device import resolve_device
 from poserisk_release_tpu_torch.scoring import tables
-from poserisk_release_tpu_torch.scoring.common import chain, frame_scores_chunked, table_gather
+from poserisk_release_tpu_torch.scoring.common import (
+    chain,
+    device_table,
+    frame_scores_chunked,
+    table_gather,
+)
 
 EVAL_ITEMS = [
     "Upper_arm (L,R)", "Lower_arm (L,R)", "Wrist (L,R)", "Wrist_twist (L,R)",
@@ -48,10 +53,6 @@ INFO_KEYS = (
 def pack_info(add_info: Dict) -> np.ndarray:
     info = add_info["RULA"] if "RULA" in add_info else add_info
     return np.array([info[k] for k in INFO_KEYS], np.int32)
-
-
-def _table(table: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(table, device=device)
 
 
 def _j(name: str) -> int:
@@ -307,7 +308,7 @@ def rula_frame_scores(euler_deg: torch.Tensor, info: torch.Tensor) -> Dict[str, 
     twist_l = torch.clamp(_wrist_twist(e[:, _j("L_Wrist"), 0]), 1, 2)
     twist_r = torch.clamp(_wrist_twist(e[:, _j("R_Wrist"), 0]), 1, 2)
 
-    table_a = _table(tables.RULA_TABLE_A, e.device)
+    table_a = device_table(tables.RULA_TABLE_A, e.device)
     group_a_l = table_gather(table_a, upper_l - 1, lower_l - 1, wrist_l - 1, twist_l - 1)
     group_a_r = table_gather(table_a, upper_r - 1, lower_r - 1, wrist_r - 1, twist_r - 1)
     group_a = torch.maximum(
@@ -327,13 +328,13 @@ def rula_frame_scores(euler_deg: torch.Tensor, info: torch.Tensor) -> Dict[str, 
     )
     leg = torch.clamp(legs_input.expand(neck.shape), 1, 2)
     group_b = (
-        table_gather(_table(tables.RULA_TABLE_B, e.device), neck - 1, trunk - 1, leg - 1)
+        table_gather(device_table(tables.RULA_TABLE_B, e.device), neck - 1, trunk - 1, leg - 1)
         + b_muscle + b_load
     )
 
     score_a = torch.clamp(group_a, 1, 7)
     score_b = torch.clamp(group_b, 1, 7)
-    final = table_gather(_table(tables.RULA_TABLE_C, e.device), score_a - 1, score_b - 1)
+    final = table_gather(device_table(tables.RULA_TABLE_C, e.device), score_a - 1, score_b - 1)
 
     return {
         "upper_arm": torch.stack([upper_l, upper_r], dim=-1),

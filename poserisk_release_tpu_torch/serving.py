@@ -1,0 +1,573 @@
+"""Request-batching server: pose + ergonomic scoring of single frames, in PyTorch.
+
+Port of the JAX package's serving.py. The reference is a batch CLI (one
+video in, result files out); this module serves the same per-frame
+capability online: score individual (frame, tracked bbox) requests arriving
+concurrently from many clients.
+
+  * **Static shapes, bucketed batching.** A request batch is padded up to
+    the smallest bucket of the ladder (default 1/4/16/64) that holds it.
+    Padding rows are edge-repeats of the last request; their results are
+    dropped.
+  * **One CUDA graph per bucket.** On a CUDA device each bucket is one
+    captured ``torch.cuda.CUDAGraph`` of crop (kernel K1) -> HMR ->
+    rotations -> SMPL joints -> REBA/RULA over static input buffers
+    ((b, H, W, 3) uint8 frames, (b, 4) f32 boxes) and static outputs. A
+    batch is copied into the inputs from pinned host buffers, the graph is
+    replayed, and the outputs are copied back to the host before the next
+    replay. All buckets of a build share one memory pool. A bucket is
+    captured on its first batch (warm-up captures every bucket), after a
+    warm-up of the step on the server's own stream; capture runs in
+    ``thread_local`` error mode on that stream, so other threads' work on
+    the card (a StreamSession's detector) neither breaks nor joins it. A
+    failed capture or replay raises: there is no eager fallback on the
+    card. On the CPU, which the caller must name, each batch runs the same
+    step eagerly.
+  * **Deadline micro-batching.** A dispatcher thread drains the request
+    queue, waiting at most ``max_delay_ms`` after the first request (or
+    until the largest bucket fills) before it runs a batch.
+
+Detection and tracking are per-stream state (a SORT filter per camera), so
+they live in ``StreamSession``: one session per camera owns its detector,
+SORT filter, online target lock and detection-stride backfill ring
+(streaming.OnlineTargetTracker, the online streaming mode's machinery) and
+feeds the tracked boxes into THIS server's ladder, so N cameras share one
+set of bucket graphs, batched across streams. ``pose_stride`` must be 1:
+requests are independent frames with no neighbours to slerp.
+
+Numerics: a request's result is the eager pose + score step's result at
+that bucket's batch shape (pipeline.PoseEstimator.run_from_frames with
+chunk = bucket, then the REBA/RULA engines), since padding edge-repeats
+the last request as run_from_frames pads its last chunk.
+
+>>> with PoseScoringServer(frame_hw=(450, 800)) as server:
+...     res = server.score(frame_u8, np.array([400., 225., 220., 220.]))
+...     res.reba, res.rula, res.euler_deg.shape
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future, InvalidStateError
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from poserisk_release_tpu_torch.body.smpl import SMPLFamily
+from poserisk_release_tpu_torch.config import Config, default_config
+from poserisk_release_tpu_torch.device import resolve_device
+from poserisk_release_tpu_torch.ops.crop import crop_batch
+from poserisk_release_tpu_torch.pipeline import PoseEstimator, build_detector
+from poserisk_release_tpu_torch.scoring import reba as reba_mod
+from poserisk_release_tpu_torch.scoring import rula as rula_mod
+from poserisk_release_tpu_torch.streaming import OnlineTargetTracker
+from poserisk_release_tpu_torch.throughput import default_packed_infos
+from poserisk_release_tpu_torch.tracking.mpt import detect_frames
+
+# Eager runs of the step on the capture stream before each capture: cuDNN
+# and cuBLAS pick their algorithms and workspaces outside the graph.
+CAPTURE_WARMUP_RUNS = 2
+
+
+@dataclass(frozen=True)
+class ScoredPose:
+    """One request's result: final scores + the angle/joint surfaces the
+    reference's debug dumps expose per frame."""
+
+    reba: int
+    rula: int
+    euler_deg: np.ndarray  # (24, 3) XYZ Euler, degrees
+    joint_cam_mm: np.ndarray  # (24, 3) root-centred joints, mm
+
+
+@dataclass(frozen=True)
+class _Request:
+    frame: np.ndarray
+    bbox: np.ndarray
+    future: Future
+    t_submit: float
+
+
+class _BucketGraph:
+    """One bucket's CUDA graph of the step, captured on its first run.
+
+    Owns the static device inputs and the graph's static outputs; `run`
+    copies a batch from the server's pinned staging buffers into the
+    inputs, replays, and returns host copies of the outputs. A replay
+    launches every kernel the capture recorded, so it adds the crop
+    kernel's recorded launches to ops/resample.crop_batch_cuda.launches
+    (the wrapper counts a recording apart, in `.captured`)."""
+
+    def __init__(self, step, bucket: int, frame_hw: Tuple[int, int], device: torch.device,
+                 pool, stream: torch.cuda.Stream):
+        self.step, self.bucket, self.device = step, bucket, device
+        self.pool, self.stream = pool, stream
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.frames = torch.zeros((bucket, *frame_hw, 3), dtype=torch.uint8, device=device)
+        self.boxes = torch.zeros((bucket, 4), dtype=torch.float32, device=device)
+        self.outputs: Tuple[torch.Tensor, ...] = ()
+        self.host_out: Tuple[torch.Tensor, ...] = ()
+        self.k1_per_replay = 0
+
+    def capture(self) -> None:
+        from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
+
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream), torch.inference_mode():
+            for _ in range(CAPTURE_WARMUP_RUNS):
+                self.step(self.frames, self.boxes)
+        self.stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        recorded = crop_batch_cuda.captured
+        try:
+            with torch.inference_mode(), torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
+                outputs = self.step(self.frames, self.boxes)
+        except Exception as exc:
+            raise RuntimeError(
+                f"CUDA graph capture of serving bucket {self.bucket} failed") from exc
+        self.k1_per_replay = crop_batch_cuda.captured - recorded
+        self.outputs = tuple(outputs)
+        self.host_out = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                              for o in self.outputs)
+        self.graph = graph
+
+    def run(self, host_frames: torch.Tensor, host_boxes: torch.Tensor):
+        from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
+
+        if self.graph is None:
+            self.capture()
+        with torch.cuda.stream(self.stream):
+            self.frames.copy_(host_frames, non_blocking=True)
+            self.boxes.copy_(host_boxes, non_blocking=True)
+            self.graph.replay()
+            for host, out in zip(self.host_out, self.outputs):
+                host.copy_(out, non_blocking=True)
+        self.stream.synchronize()
+        crop_batch_cuda.launches += self.k1_per_replay
+        return tuple(h.numpy().copy() for h in self.host_out)
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.outputs = self.host_out = ()
+
+
+class PoseScoringServer:
+    """Request-batching scoring server over one warm PoseEstimator.
+
+    Parameters
+    ----------
+    cfg, fast, spin_int8, gender:
+        Same contracts as pipeline.PoseEstimator (bf16 backbone under
+        ``fast``; int8-PTQ SPIN calibrated on the first real batch under
+        ``spin_int8``, after which the server captures its bucket graphs
+        anew, once). A non-default cfg.PARALLEL raises, as in the estimator.
+    add_info:
+        The reference's additional-information dict (load_add_info format);
+        defaults to the packaged default_information.json. Fixed per server:
+        run one server per info profile.
+    batch_sizes:
+        The bucket ladder, unique and ascending: one CUDA graph each.
+    max_delay_ms:
+        How long the dispatcher waits after the FIRST queued request for
+        more to coalesce. 0 serves strictly one batch per poll.
+    frame_hw:
+        Fixed (height, width) of every request frame, the static-shape
+        contract of the bucket graphs. Defaults to the reference's ingest
+        cap, (450, 800).
+    warm:
+        Capture and run every bucket at construction, so the first real
+        request never pays a capture.
+    calibration_crops:
+        Representative person crops ((N, S, S, 3) float [0, 1]) for the
+        ``spin_int8`` activation scales, applied BEFORE warm-up so the
+        warmed graphs are the quantized ones. Without it the first REAL
+        batch calibrates (and the graphs are captured anew, once,
+        mid-traffic). Warm-up itself never calibrates: its all-zero frames
+        would pin degenerate scales.
+    spin_variables:
+        The HMR state_dict (models/convert.flax_to_state_dict turns the JAX
+        package's Flax tree into one); None resolves the configured weights.
+    device:
+        CUDA unless the caller names another device (device.resolve_device:
+        raises without CUDA). On the CPU each batch runs the step eagerly.
+    """
+
+    def __init__(
+        self,
+        cfg: Config | None = None,
+        add_info: Optional[Dict] = None,
+        batch_sizes: Sequence[int] = (1, 4, 16, 64),
+        max_delay_ms: float = 3.0,
+        frame_hw: Tuple[int, int] = (450, 800),
+        fast: bool = False,
+        spin_int8: bool = False,
+        gender: str = "neutral",
+        warm: bool = True,
+        calibration_crops: Optional[np.ndarray] = None,
+        spin_variables: Optional[Dict[str, torch.Tensor]] = None,
+        device=None,
+    ):
+        if not batch_sizes or list(batch_sizes) != sorted(set(batch_sizes)):
+            raise ValueError(f"batch_sizes must be unique ascending, got {batch_sizes!r}")
+        self.cfg = cfg or default_config()
+        if int(self.cfg.SPIN.pose_stride) != 1:
+            raise ValueError(
+                "serving requires SPIN.pose_stride == 1: requests are "
+                "independent frames, there are no neighbours to slerp")
+        self.device = resolve_device(device)
+        self.batch_sizes = tuple(int(b) for b in batch_sizes)
+        self.max_delay_s = float(max_delay_ms) / 1e3
+        self.frame_hw = (int(frame_hw[0]), int(frame_hw[1]))
+        self.estimator = PoseEstimator(
+            self.cfg, SMPLFamily(self.cfg.SPIN.smpl_model_dir), variables=spin_variables,
+            fast=fast, spin_int8=spin_int8, gender=gender, device=self.device)
+        if calibration_crops is not None:
+            self.estimator.calibrate_spin(calibration_crops)
+        if add_info is None:
+            info_reba, info_rula = default_packed_infos()
+        else:
+            info_reba, info_rula = reba_mod.pack_info(add_info), rula_mod.pack_info(add_info)
+        self._info_reba = torch.as_tensor(info_reba, device=self.device)
+        self._info_rula = torch.as_tensor(info_rula, device=self.device)
+
+        self._cuda = self.device.type == "cuda"
+        self.graph_replays = 0
+        if self._cuda:
+            self._stream = torch.cuda.Stream(self.device)
+            # Pinned host staging per bucket: the dispatcher stacks a padded
+            # batch straight into it, and the upload is an async copy.
+            self._staging = {
+                b: (torch.empty((b, *self.frame_hw, 3), dtype=torch.uint8, pin_memory=True),
+                    torch.empty((b, 4), dtype=torch.float32, pin_memory=True))
+                for b in self.batch_sizes}
+        self._steps = self._build_steps()
+
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        self._closed = threading.Event()
+        self._lock = threading.Lock()
+        # Bounded metric windows: percentiles and fills cover the most
+        # recent requests while the totals stay exact counters.
+        self._latencies: "deque[float]" = deque(maxlen=4096)
+        self._batch_fills: "deque[Tuple[int, int]]" = deque(maxlen=4096)
+        self._n_requests = 0
+        self._n_batches = 0
+
+        if warm:
+            self._warmup()
+        self._thread = threading.Thread(target=self._dispatch_loop,
+                                        daemon=True, name="poserisk-serving")
+        self._thread.start()
+
+    # -- graph construction -------------------------------------------------
+    def _make_step(self):
+        """The fused step on the estimator's CURRENT pose core (int8
+        calibration swaps it): crop + pose (run_from_frames' per-chunk
+        step) + REBA/RULA on the card."""
+        est = self.estimator
+        info_reba, info_rula = self._info_reba, self._info_rula
+
+        def step(frames_u8: torch.Tensor, bboxes: torch.Tensor):
+            euler, joint_cam, _aa = est._pose_step_from_frames(frames_u8, bboxes)
+            reba = reba_mod.reba_frame_scores(euler, info_reba)["score"]
+            rula = rula_mod.rula_frame_scores(euler, info_rula)["score"]
+            return reba, rula, euler, joint_cam
+
+        return step
+
+    def _build_steps(self) -> Dict[int, object]:
+        """One bucket graph per bucket on the card (captured on first use,
+        one shared memory pool), the eager step elsewhere."""
+        step = self._make_step()
+        if not self._cuda:
+            return {b: step for b in self.batch_sizes}
+        pool = torch.cuda.graph_pool_handle()
+        return {b: _BucketGraph(step, b, self.frame_hw, self.device, pool, self._stream)
+                for b in self.batch_sizes}
+
+    def _release_steps(self) -> None:
+        for bucket in self._steps.values():
+            if isinstance(bucket, _BucketGraph):
+                bucket.release()
+
+    def _warmup(self) -> None:
+        frames = np.zeros((1, *self.frame_hw, 3), np.uint8)
+        boxes = np.asarray(
+            [[self.frame_hw[1] / 2, self.frame_hw[0] / 2, 32.0, 32.0]], np.float32)
+        for b in self.batch_sizes:
+            # allow_calibration=False: warm-up frames are zeros, and int8
+            # scales pinned on black frames would be degenerate.
+            self._run_bucket(np.repeat(frames, b, 0), np.repeat(boxes, b, 0),
+                             allow_calibration=False)
+
+    def _batch_buffers(self, bucket: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Where the dispatcher stacks a padded batch: the bucket's pinned
+        staging on the card, fresh arrays elsewhere."""
+        if self._cuda:
+            frames, boxes = self._staging[bucket]
+            return frames.numpy(), boxes.numpy()
+        return (np.empty((bucket, *self.frame_hw, 3), np.uint8),
+                np.empty((bucket, 4), np.float32))
+
+    def _run_bucket(self, frames: np.ndarray, bboxes: np.ndarray,
+                    allow_calibration: bool = True):
+        """One padded batch through its bucket: host (reba, rula, euler,
+        joint_cam) arrays."""
+        if allow_calibration and self.estimator.spin_needs_calibration:
+            # The first real batch calibrates the int8 backbone, as
+            # run_from_frames does; the quantized core replaces the f32 one,
+            # so the bucket graphs are released and captured anew, once.
+            self.estimator._ensure_spin_quantized(crop_batch(
+                torch.as_tensor(frames[:8], device=self.device),
+                torch.as_tensor(bboxes[:8], dtype=torch.float32, device=self.device),
+                scale=float(self.cfg.DATASET.bbox_scale),
+                out_size=int(self.cfg.MODEL.input_shape[0])))
+            self._release_steps()
+            self._steps = self._build_steps()
+        bucket = frames.shape[0]
+        if not self._cuda:
+            with torch.inference_mode():
+                outs = self._steps[bucket](torch.from_numpy(np.ascontiguousarray(frames)),
+                                           torch.from_numpy(np.ascontiguousarray(bboxes)))
+            return tuple(o.numpy() for o in outs)
+        host_frames, host_boxes = self._staging[bucket]
+        # The dispatcher stacks into the staging itself; other callers' arrays
+        # are copied in.
+        if not np.may_share_memory(frames, host_frames.numpy()):
+            np.copyto(host_frames.numpy(), frames)
+        if not np.may_share_memory(bboxes, host_boxes.numpy()):
+            np.copyto(host_boxes.numpy(), bboxes)
+        with torch.cuda.device(self.device):
+            outs = self._steps[bucket].run(host_frames, host_boxes)
+        self.graph_replays += 1
+        return outs
+
+    # -- request path --------------------------------------------------------
+    def submit(self, frame: np.ndarray, bbox: np.ndarray) -> "Future[ScoredPose]":
+        """Enqueue one request; returns a Future resolving to ScoredPose.
+
+        frame: (H, W, 3) uint8 RGB matching frame_hw. bbox: (4,) squared
+        cxcywh in frame pixels (tracking.mpt.squared_cxcywh convention).
+
+        submit() owns its inputs from the moment it returns: the frame and
+        bbox are copied at enqueue, so a caller may reuse its capture buffer
+        at once."""
+        if self._closed.is_set():
+            raise RuntimeError("server is closed")
+        frame = np.asarray(frame)
+        if frame.shape != (*self.frame_hw, 3):
+            raise ValueError(
+                f"frame shape {frame.shape} != serving contract "
+                f"{(*self.frame_hw, 3)}; fix the ingest or start the server "
+                f"with frame_hw={frame.shape[:2]}")
+        if frame.dtype != np.uint8:
+            raise ValueError(f"frame dtype {frame.dtype} != uint8")
+        frame = np.array(frame, copy=True)
+        bbox = np.array(np.asarray(bbox, np.float32).reshape(4), copy=True)
+        fut: Future = Future()
+        self._queue.put(_Request(frame, bbox, fut, time.perf_counter()))
+        if self._closed.is_set() and not fut.done():
+            # close() can win the race between the entry check above and the
+            # put: its drain has already run, so nothing would ever resolve
+            # this future.
+            try:
+                fut.set_exception(RuntimeError("server is closed"))
+            except InvalidStateError:
+                pass  # the dispatcher's final batch resolved it concurrently
+        return fut
+
+    def score(self, frame: np.ndarray, bbox: np.ndarray,
+              timeout: Optional[float] = None) -> ScoredPose:
+        """Blocking submit()."""
+        return self.submit(frame, bbox).result(timeout)
+
+    # -- dispatcher -----------------------------------------------------------
+    def _collect_batch(self) -> List[_Request]:
+        """Block for the first request, then coalesce until the deadline or
+        the largest bucket fills."""
+        try:
+            first = self._queue.get(timeout=0.05)
+        except queue.Empty:
+            return []
+        batch = [first]
+        cap = self.batch_sizes[-1]
+        deadline = time.perf_counter() + self.max_delay_s
+        while len(batch) < cap:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                break
+            try:
+                batch.append(self._queue.get(timeout=remaining))
+            except queue.Empty:
+                break
+        return batch
+
+    def _dispatch_loop(self) -> None:
+        while not self._closed.is_set():
+            batch = self._collect_batch()
+            if not batch:
+                continue
+            try:
+                n = len(batch)
+                bucket = next(b for b in self.batch_sizes if b >= n)
+                frames, boxes = self._batch_buffers(bucket)
+                np.stack([r.frame for r in batch] + [batch[-1].frame] * (bucket - n),
+                         out=frames)
+                np.stack([r.bbox for r in batch] + [batch[-1].bbox] * (bucket - n),
+                         out=boxes)
+                reba, rula, euler, joint_cam = self._run_bucket(frames, boxes)
+                now = time.perf_counter()
+                with self._lock:
+                    self._n_requests += n
+                    self._n_batches += 1
+                    self._batch_fills.append((n, bucket))
+                    self._latencies.extend(now - r.t_submit for r in batch)
+                for i, r in enumerate(batch):
+                    # submit() may have failed this future already (it raced
+                    # close()); skip it rather than poison the batch.
+                    if not r.future.done():
+                        r.future.set_result(ScoredPose(
+                            int(reba[i]), int(rula[i]),
+                            np.asarray(euler[i]), np.asarray(joint_cam[i])))
+            except Exception as exc:  # a failed batch fails its own futures only
+                for r in batch:
+                    if not r.future.done():
+                        r.future.set_exception(exc)
+
+    # -- lifecycle / metrics ---------------------------------------------------
+    def stats(self) -> Dict:
+        """Serving counters: exact request/batch totals, plus per-batch
+        (n_real, bucket) fills and submit->result latency percentiles
+        (seconds) over the most recent 4096-entry window."""
+        with self._lock:
+            lats = np.asarray(self._latencies)
+            fills = list(self._batch_fills)
+        out: Dict = {
+            "requests": int(self._n_requests),
+            "batches": int(self._n_batches),
+            "queue_depth": self._queue.qsize(),
+            "batch_fill": fills,
+        }
+        if len(lats):
+            out.update(
+                latency_p50=float(np.percentile(lats, 50)),
+                latency_p95=float(np.percentile(lats, 95)),
+                latency_p99=float(np.percentile(lats, 99)),
+            )
+        return out
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Stop the dispatcher; pending futures fail with RuntimeError. The
+        bucket graphs are released once the dispatcher has stopped."""
+        if self._closed.is_set():
+            return
+        self._closed.set()
+        self._thread.join(timeout)
+        while True:
+            try:
+                r = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if not r.future.done():
+                r.future.set_exception(RuntimeError("server closed"))
+        if not self._thread.is_alive():
+            self._release_steps()
+
+    def __enter__(self) -> "PoseScoringServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class StreamSession:
+    """Per-camera online session over a shared PoseScoringServer.
+
+    Owns the per-stream state the server does not: a detector instance (so
+    int8 activation scales can be per camera), a SORT filter, the
+    largest-box target lock and the detection-stride backfill ring, the
+    policy of StreamingScorer's online mode (streaming.OnlineTargetTracker),
+    so a session's (frame, box) sequence equals the online scorer's on the
+    same feed. Pose + REBA/RULA ride the server's bucket ladder, batched
+    across all sessions that share it.
+
+    >>> with PoseScoringServer(frame_hw=(450, 800)) as server:
+    ...     cams = [StreamSession(server) for _ in range(4)]
+    ...     for idx, fut in cams[0].push(frame_u8):
+    ...         results[idx] = fut.result()
+
+    Parameters
+    ----------
+    server:
+        The shared PoseScoringServer (frames must match its frame_hw).
+    detector:
+        Person detector for THIS stream; defaults to the Predictor's policy
+        (pipeline.build_detector on server.cfg, on the server's device:
+        YOLOv3 when weights exist, else the full-frame stub). An int8
+        detector calibrates on this stream's first detected frame unless
+        ``calibrate(frames)`` was called first with representative frames.
+    detection_stride:
+        Detect every Nth pushed frame (default: the server config's
+        DETECTOR.detection_stride); skipped frames backfill through the
+        pending ring like the online streaming mode.
+    ring_capacity:
+        Pending-ring bound in frames: gaps that outgrow it flush
+        oldest-first with the last detection's box held.
+    """
+
+    def __init__(self, server: PoseScoringServer, detector=None,
+                 detection_stride: Optional[int] = None,
+                 ring_capacity: int = 256):
+        self.server = server
+        self.detector = (detector if detector is not None
+                         else build_detector(server.cfg, device=server.device))
+        self.stride = int(server.cfg.DETECTOR.detection_stride
+                          if detection_stride is None else detection_stride)
+        if self.stride < 1:
+            raise ValueError(f"detection_stride must be >= 1, got {self.stride}")
+        # copy_pending: a pushed frame may be the caller's reused capture
+        # buffer; frames waiting in the backfill ring must not alias it.
+        self._tracker = OnlineTargetTracker(
+            ring_capacity=int(ring_capacity), backfill=self.stride > 1,
+            copy_pending=True)
+        self._next_idx = 0
+
+    def calibrate(self, frames: np.ndarray) -> None:
+        """Explicit int8 detector calibration on representative frames for
+        this camera. No-op for detectors without calibration state."""
+        if getattr(self.detector, "needs_calibration", False):
+            self.detector.calibrate(np.asarray(frames))
+
+    @property
+    def target_id(self) -> Optional[int]:
+        """The currently followed SORT identity (None before lock-on)."""
+        return self._tracker.target_id
+
+    def push(self, frame: np.ndarray) -> List[Tuple[int, "Future[ScoredPose]"]]:
+        """Feed the stream's next frame (H, W, 3 uint8, server frame_hw).
+
+        Returns [(frame_idx, future)] for every frame that became scoreable:
+        possibly none (no target yet, or waiting in the backfill ring),
+        possibly EARLIER frames (a detection resolves the pending gap's
+        interpolated boxes), in frame order. Frame indices count pushes
+        from 0."""
+        frame = np.asarray(frame)
+        idx = self._next_idx
+        self._next_idx += 1
+        dets = None
+        if idx % self.stride == 0:
+            if getattr(self.detector, "needs_calibration", False):
+                self.detector.calibrate(frame[None])
+            dets = detect_frames(self.detector, frame[None])[0]
+        return [
+            (gidx, self.server.submit(rgb, np.asarray(box, np.float32)))
+            for gidx, rgb, box in self._tracker.observe(idx, frame, dets)
+        ]

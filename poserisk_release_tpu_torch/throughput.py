@@ -74,7 +74,8 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1,
         euler = rotmat_to_euler_deg(rotmat)
         aa = rotmat_to_axis_angle(rotmat)
         aa_forced = aa.clone()
-        aa_forced[:, 0, :] = torch.tensor(ROOT_POSE, dtype=aa.dtype, device=aa.device)
+        for axis, value in enumerate(ROOT_POSE):  # fills: no host copy, capturable
+            aa_forced[:, 0, axis] = value
         joints = joints_only(smpl_params, aa_forced.reshape(aa.shape[0], -1), parents)
         joints = joints * 1000.0
         joint_cam = joints - joints[:, :1]

@@ -39,7 +39,7 @@ def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     for mod in ("ops.resample", "ops.skin", "ops.lbs", "models.detector", "throughput",
                 "ops.qconv", "ops.yolo_stage", "models.resnet_int8", "tools.exp_fused_stage",
-                "tools.exp_window_crop", "streaming"):
+                "tools.exp_window_crop", "streaming", "serving"):
         assert f"poserisk_release_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
@@ -115,6 +115,16 @@ def test_streaming_without_device_raises_when_cuda_absent(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--streaming", "--input", str(tmp_path / "none.mp4"),
                   "--output", str(tmp_path)])
+
+
+def test_serving_without_device_raises_when_cuda_absent(no_cuda):
+    """The server follows resolve_device: CUDA unless the CPU is named."""
+    from poserisk_release_tpu_torch.serving import PoseScoringServer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PoseScoringServer(warm=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PoseScoringServer(warm=False, device="cuda")
 
 
 def test_tools_and_int8_entry_points_without_device_raise_when_cuda_absent(no_cuda):
