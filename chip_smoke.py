@@ -42,6 +42,13 @@ counter set to 0 just before it and read just after:
 * the full-frame step fast at strides 8/8 with the int8 detector and the
   int8 backbone (the JAX bench's production configuration), through K2,
   held against the unfused step;
+* the mesh layouts (parallel_path): dp 2 x tp 2, dp 2 x pp 2 (2
+  microbatches), ep 4 and dp 4, each driving PoseEstimator.run_from_frames
+  over one 64-frame chunk of tracked frames at full width on 4 ranks
+  (spawned processes; NCCL with one card per rank where there are enough
+  cards, else ranks sharing cuda:0 over gloo, staged through the host);
+  scores equal the single-card step's, Euler and joints within the CPU
+  tests' limits, and every data rank on stage 0 launches K1;
 * the experiment paths of K5 (tools/exp_fused_stage: the fused int8
   residual stage against its plain version and the per-conv int8 chain, at
   the three stage shapes) and K3 with K1m (tools/exp_window_crop: the
@@ -1360,6 +1367,149 @@ def serving_path(device, frames, bboxes, track_frames, variables, smpl, cfg) -> 
     return sum(launches)
 
 
+# name, PARALLEL, JAX layout tolerance (tests/test_torch_parallel_ranks.py)
+PARALLEL_LAYOUTS = (
+    ("dp2_tp2", {"num_devices": 2, "model": 2}, 5e-3),
+    ("dp2_pp2", {"num_devices": 2, "stage": 2, "stage_microbatches": 2}, 1e-3),
+    ("ep4", {"num_devices": 1, "expert": 4}, 1e-3),
+    ("dp4", {"num_devices": 4}, 1e-3),
+)
+PARALLEL_WORLD, PARALLEL_TIMEOUT_S = 4, 240
+PORT_VS_JAX = 1e-2  # deg and mm, tests/test_torch_pose.py
+
+
+def parallel_rank(rank: int, root: str, cfg, on_cpu: bool) -> None:
+    """One rank of parallel_path: every layout in turn on the same 4-rank
+    group, each a fresh PoseEstimator (its own DeviceMesh) on the smoke's
+    cfg over the shared 64-frame chunk; a warm-up run, then the driven run with the launch
+    counts set to 0 just before it and read just after. Writes its numbers
+    to root/rank{rank}.pt. on_cpu: the CPU rehearsal (gloo on the CPU)."""
+    import torch.distributed as dist
+
+    from poserisk_release_tpu_torch.body.smpl import SMPLFamily
+    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
+    from poserisk_release_tpu_torch.parallel import mesh as pmesh
+    from poserisk_release_tpu_torch.parallel.collectives import transport
+    from poserisk_release_tpu_torch.parallel.distributed import rank_device
+    from poserisk_release_tpu_torch.pipeline import PoseEstimator
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // PARALLEL_WORLD))
+    device = rank_device(cpu=on_cpu)
+    cuda = device.type == "cuda"
+    variables = torch.load(os.path.join(root, "weights.pt"))
+    chunk = np.load(os.path.join(root, "chunk.npz"))
+    frames, boxes = chunk["frames"], chunk["boxes"]
+    ids = np.arange(len(frames))
+    smpl = SMPLFamily(cfg.SPIN.smpl_model_dir)
+    out = {}
+    for name, parallel, _tol in PARALLEL_LAYOUTS:
+        n_data = parallel["num_devices"]
+        layout_cfg = cfg.replace(PARALLEL={"frames_per_step": len(frames) // n_data, **parallel})
+        est = PoseEstimator(layout_cfg, smpl, variables=variables, device=device)
+        est.run_from_frames(frames, ids, boxes)  # warm-up
+        sync(device)
+        reset_launch_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        result = est.run_from_frames(frames, ids, boxes)
+        ms = (time.perf_counter() - t0) * 1e3
+        out[name] = {
+            "result": result, "ms": ms, "k1": crop_batch_cuda.launches,
+            "param_bytes": est.param_bytes,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device) if cuda else None,
+            "transport": transport(), "device": str(device),
+            "coords": {n: pmesh.axis_index(est.mesh, n) for n in est.mesh.mesh_dim_names},
+            "shape": {n: pmesh.axis_size(est.mesh, n) for n in est.mesh.mesh_dim_names},
+            "tf32": (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)}
+        del est
+        if cuda:
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+
+
+def parallel_path(device, frames, bboxes, track_frames, variables, smpl, cfg) -> int:
+    """The mesh layouts of PARALLEL_LAYOUTS at full width: 224x224 crops,
+    the smoke's ResNet-50 HMR weights and SMPL tables, one 64-frame chunk of
+    tracked 450x800 frames split over the data axis, strict f32 with TF32
+    off on every rank. The ranks are 4 spawned processes: NCCL with one card
+    each where the card count allows, else gloo with the ranks sharing the
+    cards (cuda:0 on one card), their collectives staged through the host;
+    gloo-staged times measure that staging, not parallel speed. Holds every
+    layout against this process's single-card step (scores exactly equal,
+    Euler and joints within the CPU tests' limits) and requires every data
+    rank on stage 0 to have launched K1. Returns the ranks' K1 launches."""
+    from poserisk_release_tpu_torch.parallel.distributed import run_ranks
+    from poserisk_release_tpu_torch.pipeline import PoseEstimator, load_add_info
+    from poserisk_release_tpu_torch.scoring.reba import REBAScorer
+    from poserisk_release_tpu_torch.scoring.rula import RULAScorer
+
+    t_phase = time.perf_counter()
+    ids = track_frames[:CHUNK]
+    chunk_frames = np.ascontiguousarray(frames[ids])
+    chunk_boxes = np.asarray(bboxes[:CHUNK], np.float32)
+    ref = PoseEstimator(cfg, smpl, variables=variables, device=device).run_from_frames(
+        chunk_frames, np.arange(CHUNK), chunk_boxes, chunk=CHUNK)
+    info = load_add_info(cfg, "")
+
+    def scores(euler):
+        return [[r["score"] for r in scorer(euler, None, info)]
+                for scorer in (REBAScorer(device="cpu"), RULAScorer(device="cpu"))]
+
+    on_cpu = torch.device(device).type != "cuda"
+    backend = "nccl" if not on_cpu and torch.cuda.device_count() >= PARALLEL_WORLD else "gloo"
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as root:
+        torch.save(variables, os.path.join(root, "weights.pt"))
+        np.savez(os.path.join(root, "chunk.npz"), frames=chunk_frames, boxes=chunk_boxes)
+        t0 = time.perf_counter()
+        run_ranks(parallel_rank, PARALLEL_WORLD, backend, f"file://{root}/init",
+                  args=(root, cfg, on_cpu), timeout=PARALLEL_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(PARALLEL_WORLD)]
+    want = scores(ref[0])
+    silent = []
+    for name, _parallel, tol in PARALLEL_LAYOUTS:
+        rs = [r[name] for r in ranks]
+        euler, joints, _aa = rs[0]["result"]
+        for r in rs[1:]:
+            for a, b in zip(rs[0]["result"], r["result"]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{name}: the ranks' gathered chunks differ")
+        d_e = np.abs(euler - ref[0])
+        d_e = float(np.minimum(d_e, 360.0 - d_e).max())
+        d_j = float(np.abs(joints - ref[1]).max())
+        same = scores(euler) == want
+        k1 = [r["k1"] for r in rs]
+        first_stage = [r["coords"].get("stage", 0) == 0 for r in rs]
+        print(json.dumps({
+            "phase": f"parallel_{name}", "transport": rs[0]["transport"],
+            "world": rs[0]["shape"], "devices": [r["device"] for r in rs],
+            "ms_per_chunk": max(r["ms"] for r in rs), "ms_per_rank": [r["ms"] for r in rs],
+            "frames": CHUNK, "param_bytes": [r["param_bytes"] for r in rs],
+            "single_card_param_bytes": sum(v.numel() * v.element_size()
+                                           for v in variables.values()),
+            "max_memory_allocated": [r["max_memory_allocated"] for r in rs],
+            "k1_launches": k1, "euler_max_abs_diff_deg": d_e, "joint_max_abs_diff_mm": d_j,
+            "scores_equal": same}))
+        if not same or d_e >= PORT_VS_JAX + tol or d_j >= PORT_VS_JAX + tol:
+            raise AssertionError(
+                f"{name} vs the single-card step: euler {d_e} deg, joints {d_j} mm, "
+                f"scores equal {same}")
+        if not on_cpu and any(r["tf32"] != (False, False) for r in rs):
+            raise AssertionError(f"{name}: a rank left TF32 on")
+        if not all(n > 0 for n, first in zip(k1, first_stage) if first):
+            silent.append((name, k1))
+        launches += sum(k1)
+    print(json.dumps({"phase": "parallel_path", "backend": backend, "spawn_s": spawn_s,
+                      "seconds": time.perf_counter() - t_phase, "k1_launches": launches}))
+    if silent:
+        raise AssertionError(f"a data rank on stage 0 launched no crop kernel: {silent}")
+    return launches
+
+
 def int8_detector_path(device, frames):
     """--fast_detector: YoloDetector(int8=True, rect=True) on the seed-0
     init, calibrated explicitly on the first CHUNK frames; its int8 heads
@@ -1646,6 +1796,8 @@ def main() -> int:
     k1["launches"] += streaming_path(device, variables, smpl, cfg)
     k1["launches"] += serving_path(device, frames, main_bboxes, main_track_frames, variables,
                                    smpl, cfg)
+    k1["launches"] += parallel_path(device, frames, main_bboxes, main_track_frames, variables,
+                                    smpl, cfg)
 
     k2_launches, yolo_sd = detector_path(device, frames)
     k2_launches += full_frame(device, frames, main_bboxes, yolo_sd, variables, smpl, cfg, False)

@@ -4,29 +4,45 @@
         --info additional_information.json --output out [--gpu 0] \
         [--visualize] [--debug] [--debug_joints "Neck,L_Hip"] [--debug_frame N] [--cpu] \
         [--fast] [--spin_int8] [--fast_detector] [--calibration frames.npy] \
-        [--streaming [--streaming_window N]]
+        [--streaming [--streaming_window N]] \
+        [--num_devices N] [--tp N] [--pp N [--pp_microbatches M]] [--ep N]
 
 Flags and defaults mirror the JAX package's cli.py (and the reference's
 main/run.py:10-20). `--gpu N` selects CUDA device N; `--cpu` runs on the
 CPU. Flags of later slices of the port are parsed and rejected with an
 error naming their ROADMAP item, so no run silently ignores them.
+
+The mesh flags map onto cfg.PARALLEL as in the JAX CLI and run one process
+per rank (parallel/): the world is num_devices (0: every visible card, or
+one on the CPU, divided among the model axes) times tp * pp * ep ranks.
+Under a launcher (torchrun, or RANK and WORLD_SIZE in the environment) each
+rank joins the launcher's group; otherwise the CLI spawns the world itself
+(torch.multiprocessing). Ranks use NCCL, one card each, or gloo on the CPU
+with --cpu. Only rank 0 writes the result files.
+
+    torchrun --nproc_per_node 4 -m poserisk_release_tpu_torch.cli --tp 2 --input v.mp4
+    python -m poserisk_release_tpu_torch.cli --cpu --num_devices 2 --pp 2 --input v.mp4
 """
 
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import os.path as osp
 
 from poserisk_release_tpu_torch.config import default_config, load_yaml_config
+from poserisk_release_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    rank_device,
+    run_ranks,
+)
 
 # flag -> (default, ROADMAP item): accepted by the parser for compatibility
-# with the JAX package's CLI, refused when set.
+# with the JAX package's CLI, refused when set. The mesh's other axes
+# (--num_devices, --tp, --pp, --ep) are in the port.
 LATER_SLICE_FLAGS = {
-    "num_devices": (0, "Queue 1 item 15 (torch.distributed mesh)"),
-    "tp": (1, "Queue 1 item 15 (torch.distributed mesh)"),
-    "sp": (1, "Queue 1 item 15 (torch.distributed mesh)"),
-    "pp": (1, "Queue 1 item 15 (torch.distributed mesh)"),
-    "ep": (1, "Queue 1 item 15 (torch.distributed mesh)"),
+    "sp": (1, "Queue 1 item 15b (the spatial axis)"),
 }
 
 
@@ -96,12 +112,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--recalibrate_per_video", action="store_true",
                         help="re-derive int8 scales at the start of every "
                              "video (implicit calibration only)")
-    # Later slices of the port: parsed so the JAX package's command lines
-    # give a clear error instead of an unknown-flag failure.
-    parser.add_argument("--num_devices", type=int, default=0, help=argparse.SUPPRESS)
-    for flag in ("tp", "sp", "pp", "ep"):
-        parser.add_argument(f"--{flag}", type=int, default=1, help=argparse.SUPPRESS)
-    parser.add_argument("--pp_microbatches", type=int, default=4, help=argparse.SUPPRESS)
+    parser.add_argument("--num_devices", type=int, default=0,
+                        help="ranks on the data axis (0 = every visible card, one on "
+                             "the CPU, left over after the model axes)")
+    parser.add_argument("--tp", type=int, default=1, metavar="N",
+                        help="tensor parallelism: Megatron-shard the SPIN weights over "
+                             "an N-wide 'model' axis (PARALLEL.model)")
+    parser.add_argument("--pp", type=int, default=1, metavar="N",
+                        help="pipeline parallelism: GPipe the SPIN forward over N "
+                             "parameter-balanced stages (PARALLEL.stage)")
+    parser.add_argument("--pp_microbatches", type=int, default=4,
+                        help="microbatches per chunk under --pp (PARALLEL.stage_microbatches)")
+    parser.add_argument("--ep", type=int, default=1, metavar="N",
+                        help="expert parallelism: one gendered SMPL model per rank of an "
+                             "N-wide 'expert' axis (PARALLEL.expert, >= 3)")
+    # Parsed so the JAX package's command lines give a clear error.
+    parser.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
     parser.add_argument("--streaming", action="store_true",
                         help="bounded-memory long-video mode: two-pass "
                              "reference-consistent target selection, peak "
@@ -234,17 +260,8 @@ def run_streaming(args, cfg, device: str) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    for flag, (default, item) in LATER_SLICE_FLAGS.items():
-        if getattr(args, flag) != default:
-            parser.error(f"--{flag} is not in the PyTorch port yet (ROADMAP {item})")
-    if args.no_visualize:
-        args.visualize = False
-
-    from poserisk_release_tpu_torch.pipeline import Predictor
-
+def config_from_args(args):
+    """The run's Config: --cfg (or the defaults) with the flags applied."""
     cfg = load_yaml_config(args.cfg) if args.cfg else default_config()
     if args.fast_detector:
         cfg = cfg.replace(DETECTOR={"rect_letterbox": True, "int8": True})
@@ -265,8 +282,81 @@ def main(argv=None) -> int:
             "calibration_frames": args.calibration_frames,
             "recalibrate_per_video": args.recalibrate_per_video,
         })
+    par_axes = {k: v for k, v in (("model", args.tp), ("stage", args.pp),
+                                  ("expert", args.ep)) if v != 1}
+    if args.pp != 1:
+        par_axes["stage_microbatches"] = args.pp_microbatches
+    if par_axes or args.num_devices:
+        cfg = cfg.replace(PARALLEL={**par_axes, "num_devices": args.num_devices})
+    return cfg
 
-    device = "cpu" if args.cpu else f"cuda:{args.gpu}"
+
+def _launched() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _world(args, cfg) -> tuple:
+    """(data-axis size, world size) of the run. Under a launcher the world
+    is the launcher's; otherwise num_devices (0: every visible card, or
+    one on the CPU, over the model axes) times the model axes."""
+    from poserisk_release_tpu_torch.parallel.spmd import model_axes_from_config
+
+    n_model = math.prod(model_axes_from_config(cfg.PARALLEL).values())
+    if _launched():
+        world = int(os.environ["WORLD_SIZE"])
+        return (args.num_devices or max(1, world // n_model)), world
+    if args.num_devices:
+        return args.num_devices, args.num_devices * n_model
+    import torch
+
+    cards = 0 if args.cpu else torch.cuda.device_count()
+    dp = max(1, cards // n_model)
+    return dp, dp * n_model
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for flag, (default, item) in LATER_SLICE_FLAGS.items():
+        if getattr(args, flag) != default:
+            parser.error(f"--{flag} is not in the PyTorch port yet (ROADMAP {item})")
+    if args.no_visualize:
+        args.visualize = False
+
+    cfg = config_from_args(args)
+    dp, world = _world(args, cfg)
+    if world > 1 and args.streaming:
+        parser.error("--streaming under a mesh is not in the PyTorch port yet "
+                     "(ROADMAP Queue 1 item 15b)")
+    if world > 1:
+        cfg = cfg.replace(PARALLEL={"num_devices": dp})
+    backend = "gloo" if args.cpu else "nccl"
+    if _launched():
+        import torch.distributed as dist
+
+        initialize_distributed("env://", backend=backend)
+        try:
+            return run(args, cfg, rank_device(cpu=args.cpu))
+        finally:
+            dist.destroy_process_group()
+    if world > 1:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            run_ranks(_rank_main, world, backend, f"file://{osp.join(tmp, 'init')}",
+                      args=(args, cfg))
+        return 0
+    return run(args, cfg, "cpu" if args.cpu else f"cuda:{args.gpu}")
+
+
+def _rank_main(rank: int, args, cfg) -> None:
+    run(args, cfg, rank_device(cpu=args.cpu))
+
+
+def run(args, cfg, device) -> int:
+    """One process's run (the whole run, or one rank's) on its device."""
+    from poserisk_release_tpu_torch.pipeline import Predictor
+
     print("Work on device: ", device)
     if args.streaming:
         return run_streaming(args, cfg, device)

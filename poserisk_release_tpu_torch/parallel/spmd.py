@@ -1,0 +1,211 @@
+"""The config -> mesh rule, and Megatron tensor parallelism of the HMR.
+
+Port of the JAX package's parallel/spmd.py. The JAX package annotates
+shardings and lets XLA's partitioner insert the collectives; here each
+collective is written where it happens.
+
+Tensor parallelism (``model`` axis), leaf for leaf the JAX rule
+(`_tp_leaf_spec`), on the port's HMR state_dict:
+  * every backbone conv weight shards its OUTPUT channels -- dim 0 of a
+    PyTorch OIHW weight, where JAX shards dim 3 of HWIO;
+  * every BN weight / bias / running_mean / running_var shards with its
+    conv (num_batches_tracked, which JAX has not, stays whole);
+  * fc1 is column-parallel (weight rows and bias), fc2 row-parallel
+    (weight columns; bias whole, added once after the all_reduce);
+  * the decpose / decshape / deccam heads and init_* stay replicated.
+A model axis must divide 64, the stem's channel count.
+
+The forward (TensorParallelHMR): each conv computes its output-channel
+shard from the whole input, BN and ReLU act on the shard, max-pool and the
+residual add work shard-wise (the block's output shard lines up with its
+input's). The channels are all-gathered just before a conv that consumes a
+sharded activation, and once more after the global average pool. fc1's
+shard output feeds fc2's shard, and one all_reduce sums fc2's partial
+products.
+
+The spatial axis (crop rows over ``spatial``) is not ported: ROADMAP
+Queue 1 item 15b.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from poserisk_release_tpu_torch.models.resnet import BN_EPS
+from poserisk_release_tpu_torch.models.spin import NPOSE, ief_head
+from poserisk_release_tpu_torch.parallel import collectives
+from poserisk_release_tpu_torch.parallel.expert import EXPERT_AXIS
+from poserisk_release_tpu_torch.parallel.pipeline import _BLOCKS, STAGE_AXIS
+
+MODEL_AXIS = "model"
+SPATIAL_AXIS = "spatial"
+
+
+def model_axes_from_config(pcfg) -> Dict[str, int]:
+    """The configured model-parallel axes (size > 1) of a ParallelConfig,
+    in mesh order: stage outermost, then expert, model, spatial."""
+    return {
+        name: int(size)
+        for name, size in ((STAGE_AXIS, pcfg.stage), (EXPERT_AXIS, pcfg.expert),
+                           (MODEL_AXIS, pcfg.model), (SPATIAL_AXIS, pcfg.spatial))
+        if int(size) > 1
+    }
+
+
+def mesh_shape_from_config(pcfg, world_size: int) -> Optional[Dict[str, int]]:
+    """{axis: size} of the mesh a ParallelConfig describes over world_size
+    ranks, data outermost, or None for the single-device layout (no model
+    axes and a data axis <= 1). The data axis is PARALLEL.num_devices, or
+    whatever the model axes leave of the world when that is 0."""
+    axes = model_axes_from_config(pcfg)
+    n_model = int(np.prod(list(axes.values()))) if axes else 1
+    if pcfg.num_devices and pcfg.num_devices > 0:
+        dp = int(pcfg.num_devices)
+    else:
+        dp = max(1, world_size // n_model)
+    if not axes and dp <= 1:
+        return None
+    return {pcfg.data_axis: dp, **axes}
+
+
+def mesh_from_config(pcfg):
+    """The DeviceMesh a ParallelConfig describes over the process group, or
+    None for the single-device layout. The mesh must cover the whole group.
+    Its device type is CUDA under NCCL and the CPU under gloo (gloo's
+    collectives run on the host, whichever device computes)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    shape = mesh_shape_from_config(pcfg, world)
+    if shape is None:
+        return None
+    n = int(np.prod(list(shape.values())))
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"PARALLEL describes the mesh {shape} ({n} ranks) but this process is in no "
+            "process group: run it under torchrun or the CLI's own spawn, or call "
+            "parallel.distributed.initialize_distributed first")
+    if n != world:
+        raise ValueError(f"the mesh {shape} needs {n} ranks; the process group has {world}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, tuple(shape.values()),
+                            mesh_dim_names=tuple(shape.keys()))
+
+
+def _check_model_size(size: int) -> None:
+    if size < 1 or 64 % size:
+        raise ValueError(f"the model axis ({size}) must divide 64, the stem's channel count")
+
+
+def tp_shard_dim(key: str, ndim: int) -> Optional[int]:
+    """The state_dict dim that the model axis shards for one entry, or None
+    when the entry is replicated (the JAX `_tp_leaf_spec`, transposed to
+    PyTorch layouts)."""
+    if key.startswith(("conv1.", "bn1.", "layer")):
+        return 0 if ndim in (1, 4) else None  # OIHW output channels; BN vectors
+    if key.startswith("fc1."):
+        return 0  # column-parallel: weight rows (out) and bias
+    if key == "fc2.weight":
+        return 1  # row-parallel: weight columns (in); the bias stays whole
+    return None
+
+
+def tp_shard_state_dict(state_dict: Dict[str, torch.Tensor], size: int,
+                        index: int) -> Dict[str, torch.Tensor]:
+    """The model-axis rank `index`'s shard of an HMR state_dict: each
+    sharded entry's contiguous index-th of size slices along tp_shard_dim."""
+    _check_model_size(size)
+    out = {}
+    for key, value in state_dict.items():
+        dim = tp_shard_dim(key, value.ndim)
+        if dim is not None:
+            value = value.chunk(size, dim=dim)[index]
+        out[key] = value.clone()
+    return out
+
+
+def _gather_channels(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, C/T, H, W) channel shards -> (B, C, H, W), channels in rank
+    order, channels_last in memory like the convs' own outputs."""
+    shards = collectives.all_gather_rows(x.permute(0, 2, 3, 1).contiguous()[None], group)
+    T, B, H, W, c = shards.shape
+    full = shards.permute(1, 2, 3, 0, 4).reshape(B, H, W, T * c)
+    return full.permute(0, 3, 1, 2)
+
+
+class TensorParallelHMR:
+    """This rank's shard of the HMR and its forward (see the module
+    docstring): crops_nhwc (B, S, S, 3) -> (rotmat, betas, camera), every
+    output whole on every rank of the model axis.
+
+    state_dict: the whole HMR state_dict (host); only this rank's shard is
+    kept, on `device`. backbone_dtype: bfloat16 for the fast path (the
+    backbone shards are stored and computed in it, as HMR.cast_backbone);
+    the IEF head always runs in float32."""
+
+    def __init__(self, state_dict: Dict[str, torch.Tensor], group, size: int, index: int,
+                 n_iter: int, device, backbone_dtype: torch.dtype = torch.float32):
+        self.group, self.n_iter = group, int(n_iter)
+        shard = tp_shard_state_dict(state_dict, size, index)
+        self.tensors: Dict[str, torch.Tensor] = {}
+        for key, value in shard.items():
+            if key.endswith("num_batches_tracked"):
+                continue
+            if key.startswith(("conv1.", "bn1.", "layer")):
+                value = value.to(backbone_dtype)
+                if value.ndim == 4:
+                    value = value.to(memory_format=torch.channels_last)
+            self.tensors[key] = value.to(device)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tensors.values())
+
+    def _conv_bn(self, x, conv: str, bn: str, stride: int = 1, padding: int = 0):
+        t = self.tensors
+        y = F.conv2d(x, t[conv + ".weight"], stride=stride, padding=padding)
+        return F.batch_norm(y, t[bn + ".running_mean"], t[bn + ".running_var"],
+                            t[bn + ".weight"], t[bn + ".bias"], False, 0.0, BN_EPS)
+
+    def _block(self, x_shard, L: int, i: int):
+        p = f"layer{L}.{i}."
+        stride = 2 if (L > 1 and i == 0) else 1
+        x = _gather_channels(x_shard, self.group)
+        if i == 0:
+            identity = self._conv_bn(x, p + "downsample.0", p + "downsample.1", stride)
+        else:
+            identity = x_shard
+        out = F.relu(self._conv_bn(x, p + "conv1", p + "bn1"))
+        out = _gather_channels(out, self.group)
+        out = F.relu(self._conv_bn(out, p + "conv2", p + "bn2", stride, 1))
+        out = _gather_channels(out, self.group)
+        out = self._conv_bn(out, p + "conv3", p + "bn3")
+        return F.relu(out + identity)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW crops -> (B, 2048) pooled f32 features, whole."""
+        x = x.to(self.tensors["conv1.weight"].dtype)
+        x = F.relu(self._conv_bn(x, "conv1", "bn1", 2, 3))
+        x = F.max_pool2d(x, 3, 2, 1)
+        for L, i in _BLOCKS:
+            x = self._block(x, L, i)
+        xf = x.float().mean(dim=(2, 3))
+        return collectives.all_gather_rows(xf.t().contiguous(), self.group).t()
+
+    def _dense(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        w = self.tensors[name + ".weight"]
+        if name == "fc2":  # row-parallel: partial products, one all_reduce
+            return collectives.all_reduce_sum(t @ w.t(), self.group) + self.tensors["fc2.bias"]
+        return F.linear(t, w, self.tensors[name + ".bias"])
+
+    def __call__(self, crops_nhwc: torch.Tensor):
+        B = crops_nhwc.shape[0]
+        xf = self.features(crops_nhwc.permute(0, 3, 1, 2))
+        t = self.tensors
+        return ief_head(self._dense, xf, t["init_pose"].expand(B, NPOSE),
+                        t["init_shape"].expand(B, 10), t["init_cam"].expand(B, 3), self.n_iter)
+

@@ -28,7 +28,13 @@ Both calibrate their activation scales on the first frames they see, or up
 front from DETECTOR.calibration (apply_explicit_calibration), and
 DETECTOR.recalibrate_per_video re-derives them for every video.
 
-Not in this slice (it raises rather than degrading): mesh parallelism.
+Mesh parallelism (parallel/, over torch.distributed): PARALLEL's data,
+model (tp), stage (pp) and expert (ep) axes, one process per rank. Every
+rank runs the Predictor's host side identically; each data rank runs the
+pose step on its rows of a chunk under its model axes (K1 crops on every
+data rank, on stage 0 under pp); the outputs are all-gathered, and only
+rank 0 writes files. The spatial axis (--sp) and the streaming scorer
+under a mesh are ROADMAP Queue 1 item 15b and raise.
 The bounded-memory streaming scorer is streaming.StreamingScorer.
 """
 
@@ -80,6 +86,12 @@ from poserisk_release_tpu_torch.tracking.mpt import (
 )
 
 
+def _global_rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def load_spin_variables(cfg: Config) -> Dict[str, torch.Tensor]:
     """SPIN weights as the port's HMR state_dict, resolved as the JAX
     package resolves them: converted-npz cache > torch checkpoint (converted
@@ -89,10 +101,16 @@ def load_spin_variables(cfg: Config) -> Dict[str, torch.Tensor]:
     The cache embeds the checkpoint's (size, mtime_ns) stamp; any mismatch
     triggers re-conversion, so new weights dropped over the old checkpoint
     path are never shadowed by the previous conversion. Caches without a
-    stamp fall back to the mtime ordering."""
+    stamp fall back to the mtime ordering.
+
+    In a process group only rank 0 writes the cache; the other ranks
+    convert the checkpoint themselves rather than read a cache that rank 0
+    may be writing (a cache without a checkpoint, which nobody writes, they
+    read)."""
     npz_path = cfg.SPIN.checkpoint + ".flax.npz"
     have_ckpt = osp.isfile(cfg.SPIN.checkpoint)
-    if osp.isfile(npz_path):
+    writer = _global_rank() == 0
+    if osp.isfile(npz_path) and (writer or not have_ckpt):
         fresh = not have_ckpt
         if have_ckpt:
             stamp = model_convert.cached_source_stamp(npz_path)
@@ -111,19 +129,12 @@ def load_spin_variables(cfg: Config) -> Dict[str, torch.Tensor]:
             model_convert.load_spin_checkpoint(cfg.SPIN.checkpoint))
         for key in ("init_pose", "init_shape", "init_cam"):
             variables["params"].setdefault(key, mean[key])
-        model_convert.save_flax_variables(variables, npz_path,
-                                          source=cfg.SPIN.checkpoint)
+        if writer:
+            model_convert.save_flax_variables(variables, npz_path,
+                                              source=cfg.SPIN.checkpoint)
         return model_convert.flax_to_state_dict(variables)
     return init_spin_params(torch.Generator().manual_seed(0), mean,
                             n_iter=cfg.SPIN.ief_iters)
-
-
-def _pad_to_multiple(x: torch.Tensor, multiple: int) -> torch.Tensor:
-    """Pad dim 0 up to a multiple by repeating the last row, on x's device."""
-    n = x.shape[0]
-    if multiple <= 1 or n % multiple == 0:
-        return x
-    return torch.cat([x, x[-1:].expand(multiple - n % multiple, *x.shape[1:])])
 
 
 def _gather_rows(x, ids: np.ndarray):
@@ -134,22 +145,29 @@ def _gather_rows(x, ids: np.ndarray):
     return x[ids]
 
 
-def _check_single_device(cfg: Config) -> None:
+def _mesh_axes(cfg: Config, mesh) -> tuple:
+    """The names of the mesh the estimator will run on: the given mesh's,
+    or the one PARALLEL describes (known before any process group exists,
+    so the layout checks run first)."""
+    from poserisk_release_tpu_torch.parallel import spmd
+
+    if mesh is not None:
+        return tuple(mesh.mesh_dim_names)
     pcfg = cfg.PARALLEL
-    axes = {k: getattr(pcfg, k) for k in ("model", "spatial", "stage", "expert")}
-    if any(v > 1 for v in axes.values()) or pcfg.num_devices > 1:
-        raise NotImplementedError(
-            f"PARALLEL {axes} / num_devices={pcfg.num_devices}: mesh "
-            "parallelism is a later slice of the port (ROADMAP Queue 1 item 15)")
+    axes = spmd.model_axes_from_config(pcfg)
+    if axes or int(pcfg.num_devices) > 1:
+        return (pcfg.data_axis, *axes)
+    return ()
 
 
 class PoseEstimator:
-    """Crops -> (euler deg, joint_cam mm, axis-angle), chunked on one device."""
+    """Crops -> (euler deg, joint_cam mm, axis-angle), chunked, on one
+    device or one rank of a mesh."""
 
     def __init__(self, cfg: Config, smpl_family: SMPLFamily,
                  variables: Optional[Dict[str, torch.Tensor]] = None,
                  gender: str = "neutral", fast: bool = False, spin_int8: bool = False,
-                 device=None):
+                 device=None, mesh=None):
         """variables: an HMR state_dict (models.convert.flax_to_state_dict
         turns the JAX package's Flax tree into one); None resolves them
         through load_spin_variables. fast=True runs the ResNet backbone in
@@ -159,10 +177,47 @@ class PoseEstimator:
         spin_int8=True routes the ResNet-50 through the int8 PTQ backbone
         (models/resnet_int8), folded, calibrated and bias-corrected on the
         first crops this estimator sees (at most 8), in the crops' dtype
-        around its int8 convs (f32 strict, bf16 fast)."""
-        _check_single_device(cfg)
+        around its int8 convs (f32 strict, bf16 fast); under dp or ep rank 0
+        quantizes and every rank takes its backbone (a replica).
+
+        mesh: a DeviceMesh (parallel/spmd.mesh_from_config), or None, in
+        which case PARALLEL decides: any model axis, or num_devices > 1,
+        builds the mesh over the process group this rank has joined
+        (parallel/distributed.initialize_distributed); otherwise the
+        estimator runs on one device. Under the mesh the HMR is Megatron-
+        sharded over ``model`` (tp), GPipe-pipelined over ``stage`` with
+        each rank holding only its stage's weights (pp), or replicated,
+        with the gendered SMPL tables one per ``expert`` rank (ep); chunks
+        split over ``data`` and every rank returns the whole chunk."""
+        from poserisk_release_tpu_torch.parallel import mesh as pmesh
+        from poserisk_release_tpu_torch.parallel import spmd
+
+        pcfg = cfg.PARALLEL
+        if int(pcfg.spatial) > 1:
+            raise NotImplementedError(
+                f"PARALLEL.spatial={pcfg.spatial}: the spatial axis (crop rows with hand "
+                "halo exchanges) is not in the PyTorch port yet (ROADMAP Queue 1 item 15b)")
+        names = _mesh_axes(cfg, mesh)
+        if names and pcfg.data_axis not in names:
+            raise ValueError(
+                f"mesh axes {names} lack the configured data axis {pcfg.data_axis!r}")
+        self._tp = spmd.MODEL_AXIS in names
+        self._pp = spmd.STAGE_AXIS in names
+        self._ep = spmd.EXPERT_AXIS in names
+        if self._pp and (self._tp or self._ep):
+            raise ValueError(
+                "PARALLEL.stage (pipeline parallelism) cannot combine with the "
+                "model/expert axes in one mesh")
+        if spin_int8 and (self._tp or self._pp):
+            raise ValueError(
+                "spin_int8 cannot combine with model or stage parallelism: the quantized "
+                "backbone has its own layout; pick one of int8 / tp / pp for the backbone")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if mesh is None and names:
+            mesh = spmd.mesh_from_config(pcfg)
+        self.mesh = mesh
+        self._n_data = pmesh.axis_size(mesh, pcfg.data_axis)
         self.fast = bool(fast)
         if self.device.type == "cuda" and not self.fast:
             torch.backends.cudnn.allow_tf32 = False
@@ -173,7 +228,22 @@ class PoseEstimator:
         parents = np.asarray(smpl_family[gender].kintree_parents).copy()
         parents[0] = 0
         self.parents = tuple(int(p) for p in parents)
-        self.smpl_params = smpl_params_to_torch(smpl_family[gender], self.device)
+        expert_joints = None
+        if self._ep:
+            from poserisk_release_tpu_torch.parallel.expert import (
+                GENDERS, make_expert_joints, stack_gender_experts)
+
+            # Each expert rank keeps only its own slot of the stacked
+            # gendered tables; set_gender swaps the routing scalar.
+            e = pmesh.axis_index(mesh, spmd.EXPERT_AXIS)
+            stacked = stack_gender_experts(smpl_family, pmesh.axis_size(mesh, spmd.EXPERT_AXIS))
+            self.smpl_params = {k: v[e].to(self.device) for k, v in stacked.items()}
+            self.smpl_params["gender_id"] = torch.tensor(
+                GENDERS.index(gender), dtype=torch.int32, device=self.device)
+            expert_joints = make_expert_joints(
+                self.parents, pmesh.axis_group(mesh, spmd.EXPERT_AXIS), e)
+        else:
+            self.smpl_params = smpl_params_to_torch(smpl_family[gender], self.device)
 
         # Pose-stride throughput mode (SpinConfig.pose_stride): SPIN runs on
         # every Nth tracked frame; skipped frames slerp between anchors.
@@ -187,20 +257,65 @@ class PoseEstimator:
         self._variables_f32 = (
             {k: v.detach().cpu().clone() for k, v in variables.items()} if spin_int8 else None)
         self._quant_backbone = self.quant_params = None
-        model = HMR(n_iter=cfg.SPIN.ief_iters)
-        model.load_state_dict(variables)
-        model.eval()
-        if self.fast:
-            model.cast_backbone(torch.bfloat16)
-        self.model = model.to(self.device, memory_format=torch.channels_last)
         self._crop_dtype = torch.bfloat16 if self.fast else torch.float32
-        self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride)
+        # Stage 0 alone crops under pp; the other stages never read pixels.
+        self._crops_here = True
+        spin_forward = None
+        if self._tp:
+            self.model = spmd.TensorParallelHMR(
+                variables, pmesh.axis_group(mesh, spmd.MODEL_AXIS),
+                pmesh.axis_size(mesh, spmd.MODEL_AXIS), pmesh.axis_index(mesh, spmd.MODEL_AXIS),
+                cfg.SPIN.ief_iters, self.device, self._crop_dtype)
+            spin_forward = self.model
+        elif self._pp:
+            from poserisk_release_tpu_torch.parallel import pipeline as ppipe
+
+            n_stages = pmesh.axis_size(mesh, spmd.STAGE_AXIS)
+            stage = pmesh.axis_index(mesh, spmd.STAGE_AXIS)
+            sized = variables
+            if self.fast:  # the split balances the bytes the stages will hold
+                sized = {k: v.to(torch.bfloat16) if k.startswith(("conv1.", "bn1.", "layer"))
+                         and v.is_floating_point() else v for k, v in variables.items()}
+            self._pp_split = ppipe.balanced_split(sized, n_stages)
+            self.model = ppipe.PipelineHMR(
+                ppipe.stage_param_entries(variables, self._pp_split)[stage], self._pp_split,
+                pmesh.axis_group(mesh, spmd.STAGE_AXIS), stage,
+                int(pcfg.stage_microbatches), int(cfg.MODEL.input_shape[0]),
+                cfg.SPIN.ief_iters, self.device, self._crop_dtype)
+            spin_forward = self.model
+            self._crops_here = stage == 0
+        else:
+            model = HMR(n_iter=cfg.SPIN.ief_iters)
+            model.load_state_dict(variables)
+            model.eval()
+            if self.fast:
+                model.cast_backbone(torch.bfloat16)
+            self.model = model.to(self.device, memory_format=torch.channels_last)
+        self._core_hooks = {"spin_forward": spin_forward, "expert_joints": expert_joints,
+                            "mesh": mesh}
+        self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride,
+                                         **self._core_hooks)
+
+    @property
+    def param_bytes(self) -> int:
+        """Bytes of the SPIN weights this rank holds on its device (the
+        whole HMR, its tp shard, or its pp stage)."""
+        if isinstance(self.model, torch.nn.Module):
+            return sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
+        return self.model.nbytes()
 
     def set_gender(self, gender: str) -> None:
-        """Switch the SMPL body model between tracks (--person_genders)."""
+        """Switch the SMPL body model between tracks (--person_genders).
+        Under ep only the routing scalar changes: the gendered tables stay
+        where they are, one per expert rank."""
         if gender == self.gender:
             return
-        self.smpl_params = smpl_params_to_torch(self._family[gender], self.device)
+        if self._ep:
+            from poserisk_release_tpu_torch.parallel.expert import GENDERS
+
+            self.smpl_params["gender_id"].fill_(GENDERS.index(gender))  # ValueError if unknown
+        else:
+            self.smpl_params = smpl_params_to_torch(self._family[gender], self.device)
         self.gender = gender
 
     def _ensure_spin_quantized(self, calib_crops: torch.Tensor) -> None:
@@ -212,8 +327,20 @@ class PoseEstimator:
         from poserisk_release_tpu_torch.models.spin import quantize_spin_backbone
 
         calib = torch.as_tensor(calib_crops[:8], dtype=torch.float32, device=self.device)
-        self.load_quant_backbone(quantize_spin_backbone(
-            self._variables_f32, calib, min_stage=int(self.cfg.SPIN.int8_min_stage)))
+        if self.mesh is None:
+            qparams = quantize_spin_backbone(
+                self._variables_f32, calib, min_stage=int(self.cfg.SPIN.int8_min_stage))
+        else:
+            # dp / ep: one calibration, replicated (rank 0's, as the JAX
+            # estimator replicates its one quantized tree).
+            from poserisk_release_tpu_torch.parallel.collectives import broadcast_object
+
+            qparams = None
+            if _global_rank() == 0:
+                qparams = quantize_spin_backbone(
+                    self._variables_f32, calib, min_stage=int(self.cfg.SPIN.int8_min_stage))
+            qparams = broadcast_object(qparams, src=0)
+        self.load_quant_backbone(qparams)
         if not self.cfg.DETECTOR.recalibrate_per_video:
             self._variables_f32 = None
 
@@ -226,7 +353,8 @@ class PoseEstimator:
         self.quant_params = qparams
         self._quant_backbone = prepare_resnet50(qparams, self.device)
         self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride,
-                                         quant_backbone=self._quant_backbone)
+                                         quant_backbone=self._quant_backbone,
+                                         **self._core_hooks)
 
     def reset_calibration(self) -> None:
         """Drop the int8 backbone so the next crops (or calibrate_spin)
@@ -242,7 +370,8 @@ class PoseEstimator:
                 "was released; construct the estimator with "
                 "DETECTOR.recalibrate_per_video=True to keep it resident")
         self._quant_backbone = self.quant_params = None
-        self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride)
+        self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride,
+                                         **self._core_hooks)
 
     def calibrate_spin(self, crops) -> None:
         """Explicit spin_int8 calibration on representative person crops
@@ -258,16 +387,19 @@ class PoseEstimator:
     def _pose_step(self, crops: torch.Tensor):
         return self._pose_core(self.model, self.smpl_params, crops)
 
+    def _crop(self, frames_u8: torch.Tensor, bboxes: torch.Tensor) -> torch.Tensor:
+        """The pose step's crops (K1 on the card). A later pp stage crops
+        nothing: it gets an empty (B, 0) tensor, since only B matters there."""
+        if not self._crops_here:
+            return torch.empty((frames_u8.shape[0], 0), device=self.device)
+        return crop_batch(frames_u8, bboxes, scale=float(self.cfg.DATASET.bbox_scale),
+                          out_size=int(self.cfg.MODEL.input_shape[0]),
+                          out_dtype=self._crop_dtype)
+
     def _pose_step_from_frames(self, frames_u8: torch.Tensor, bboxes: torch.Tensor):
         # Crop fused into the pose step: the host uploads raw uint8 frames
         # once and downloads only angles/joints.
-        crops = crop_batch(
-            frames_u8, bboxes,
-            scale=float(self.cfg.DATASET.bbox_scale),
-            out_size=int(self.cfg.MODEL.input_shape[0]),
-            out_dtype=self._crop_dtype,
-        )
-        return self._pose_core(self.model, self.smpl_params, crops)
+        return self._pose_core(self.model, self.smpl_params, self._crop(frames_u8, bboxes))
 
     def run(self, crops: np.ndarray, chunk: int = 0):
         """crops: (F, 224, 224, 3) float32 [0,1]. Chunked + padded execution;
@@ -311,12 +443,16 @@ class PoseEstimator:
         )
 
     def production_chunk(self, chunk: int = 0) -> int:
-        """THE chunk-size rule: the requested (or configured frames_per_step)
-        chunk rounded up to a multiple of pose_stride, so the anchor phase
-        stays aligned across chunks."""
+        """THE chunk-size rule: the requested (or configured frames_per_step
+        * n_data) chunk rounded up to a multiple of n_data * pose_stride,
+        so the anchor phase stays aligned across chunks and the anchor batch
+        splits evenly over the data axis (times stage_microbatches under
+        pp, so every data shard splits into microbatches)."""
         if chunk <= 0:
-            chunk = self.cfg.PARALLEL.frames_per_step
-        q = self._pose_stride
+            chunk = self.cfg.PARALLEL.frames_per_step * self._n_data
+        q = self._n_data * self._pose_stride
+        if self._pp:
+            q *= int(self.cfg.PARALLEL.stage_microbatches)
         return ((chunk + q - 1) // q) * q
 
     def _run_chunked(self, num_items: int, host_chunk, step_fn, chunk: int = 0):
@@ -325,27 +461,36 @@ class PoseEstimator:
             empty = np.zeros((0, 24, 3), np.float32)
             return empty, empty.copy(), empty.copy()
 
+        from poserisk_release_tpu_torch.parallel.mesh import pad_to_multiple, shard_rows
+
         def upload(start: int):
             # n_valid counts FRAMES (the step's output rows); under a pose
             # stride the uploaded parts are the anchor subsample. A tensor
-            # part is padded on its own device; a host part goes up padded.
+            # part is padded on its own device; a host part goes up padded,
+            # only this data rank's rows of it (none on a later pp stage).
             n_valid = min(chunk, num_items - start)
             batches = []
             for part in host_chunk(start, chunk):
                 if not isinstance(part, torch.Tensor):
                     part = torch.from_numpy(np.ascontiguousarray(part))
-                batches.append(_pad_to_multiple(part, chunk // self._pose_stride)
-                               .to(self.device, non_blocking=True))
+                part = shard_rows(pad_to_multiple(part, chunk // self._pose_stride)[0],
+                                  self.mesh)
+                batches.append(part.to(self.device, non_blocking=True)
+                               if self._crops_here else part)
             return batches, n_valid
 
         eulers, jcams, aas = [], [], []
 
         def fetch(out, start, n_valid, idx):
             # Per-chunk fault isolation: a failed fetch re-runs its chunk
-            # once on the same device before surfacing with context.
+            # once on the same device before surfacing with context. Not
+            # under a mesh: a rank re-running alone would wait forever on
+            # its collectives.
             try:
                 e, jc, aa = (x.cpu().numpy() for x in out)
             except RuntimeError:
+                if self.mesh is not None:
+                    raise
                 try:
                     batches, _ = upload(start)
                     with torch.inference_mode():
@@ -482,7 +627,12 @@ class Predictor:
         spin_int8: bool = False,
         validate_rotations: bool = False,
         device=None,
+        mesh=None,
     ):
+        """mesh: as PoseEstimator's (None: PARALLEL decides). Under a mesh
+        every rank runs the Predictor and returns the same result; only
+        rank 0 writes files (result txts, CSVs, plots, videos, the run
+        summary), so its outputs equal a single-rank run's byte for byte."""
         self.cfg = cfg or default_config()
         self.device = resolve_device(device)
         self.smpl = SMPLFamily(self.cfg.SPIN.smpl_model_dir, allow_synthetic=allow_synthetic_assets)
@@ -497,8 +647,9 @@ class Predictor:
         self._lbs_cache: Dict[str, LBS] = {}
         self.pose_estimator = PoseEstimator(
             self.cfg, self.smpl, variables=spin_variables, gender=gender,
-            fast=fast, spin_int8=spin_int8, device=self.device,
+            fast=fast, spin_int8=spin_int8, device=self.device, mesh=mesh,
         )
+        self._writes = self.pose_estimator.mesh is None or _global_rank() == 0
 
         # The detector comes after the PoseEstimator, which turns TF32 off on
         # the strict path before the detector's first convolution.
@@ -537,7 +688,8 @@ class Predictor:
         return self._lbs_cache[gender]
 
     def __call__(self, input_path: str, info_path: str, output_path: str):
-        os.makedirs(output_path, exist_ok=True)
+        if self._writes:
+            os.makedirs(output_path, exist_ok=True)
         self.timings = {}
 
         # Shared-instance lifecycle: re-derive the int8 scales per video
@@ -557,9 +709,11 @@ class Predictor:
 
             # Reference-parity ingest: frames take the '%09d.jpg' disk round
             # trip (funcs_utils.py:42) before detection/cropping.
-            tmp = osp.join(output_path, "tmp")
+            # Ranks that write no files take the same pixels in memory.
+            tmp = osp.join(output_path, "tmp") if self._writes else None
             clip = jpeg_roundtrip(clip, tmp_path=tmp)
-            shutil.rmtree(tmp, ignore_errors=True)
+            if tmp is not None:
+                shutil.rmtree(tmp, ignore_errors=True)
             self.timings["decode"] = time.time() - t0
 
             t0 = time.time()
@@ -585,7 +739,8 @@ class Predictor:
             try:
                 for pid, track in survivors.items():
                     person_out = osp.join(output_path, f"person_{pid}")
-                    os.makedirs(person_out, exist_ok=True)
+                    if self._writes:
+                        os.makedirs(person_out, exist_ok=True)
                     self.pose_estimator.set_gender(
                         self.person_genders.get(int(pid), self.gender))
                     summaries[pid] = self._process_track(
@@ -643,8 +798,10 @@ class Predictor:
 
     def _process_track(self, clip, bboxes, frames, info_path, output_path):
         debug_path = osp.join(output_path, "debug")
-        shutil.rmtree(debug_path, ignore_errors=True)
-        os.makedirs(debug_path, exist_ok=True)
+        writes = self._writes
+        if writes:
+            shutil.rmtree(debug_path, ignore_errors=True)
+            os.makedirs(debug_path, exist_ok=True)
         timestamp = (0, frames, clip.num_frames)
         # Per-track stage keys start fresh (under --multi_person this runs
         # once per person within one __call__).
@@ -664,14 +821,15 @@ class Predictor:
         # --- single-frame debug branch ------------------------------------
         if self.debugging and self.debug_frame >= 0:
             print(f"\n===> Debug Result at frame #{self.debug_frame}")
-            self._visualize_joint_cam_mesh(axis_angles, joint_cam, frames, debug_path)
+            if writes:
+                self._visualize_joint_cam_mesh(axis_angles, joint_cam, frames, debug_path)
             print("\n Debug files are saved in : ", debug_path)
             return None
 
         add_info = load_add_info(self.cfg, info_path)
 
         pose_str = pose_to_str(result)
-        if self.debugging and self.debug_joints is not None:
+        if writes and self.debugging and self.debug_joints is not None:
             save_csv_pose_log(
                 pose_str, timestamp, self.debug_joints,
                 self.smpl.joints_name_upper, debug_path,
@@ -692,9 +850,9 @@ class Predictor:
                 self.timings.get("score.device", 0.0) + time.time() - t1
             )
             final_scores, scores, logs = post_process_scores(
-                results, timestamp, output_path, title=title
+                results, timestamp, output_path, title=title, make_plot=writes
             )
-            if self.visualize:
+            if writes and self.visualize:
                 t1 = time.time()
                 render_result_video(
                     clip.frames, bboxes, timestamp, clip.fps,
@@ -703,27 +861,29 @@ class Predictor:
                 self.timings["score.render"] = (
                     self.timings.get("score.render", 0.0) + time.time() - t1
                 )
-            if self.debugging:
+            if writes and self.debugging:
                 save_score_log_csv(timestamp, scores, scorer.eval_items, logs, debug_path, title)
                 save_eval_pose_log_csv(timestamp, scorer.log, debug_path, title)
 
             action_level, action_name = scorer.action_level(final_scores[4])
-            write_result_txt(output_path, title, final_scores, action_level, action_name)
+            if writes:
+                write_result_txt(output_path, title, final_scores, action_level, action_name)
             summary[title] = (final_scores, action_level, action_name)
         self.timings["score"] = time.time() - t0
 
-        with open(osp.join(output_path, "run_summary.json"), "w") as f:
-            json.dump(
-                {
-                    "frames_total": int(timestamp[2]),
-                    "frames_tracked": int(len(frames)),
-                    "device": str(self.device),
-                    "timings_sec": {k: round(v, 4) for k, v in self.timings.items()},
-                    "scores": scores_summary_block(summary),
-                },
-                f,
-                indent=2,
-            )
+        if writes:
+            with open(osp.join(output_path, "run_summary.json"), "w") as f:
+                json.dump(
+                    {
+                        "frames_total": int(timestamp[2]),
+                        "frames_tracked": int(len(frames)),
+                        "device": str(self.device),
+                        "timings_sec": {k: round(v, 4) for k, v in self.timings.items()},
+                        "scores": scores_summary_block(summary),
+                    },
+                    f,
+                    indent=2,
+                )
 
         print("\n\n===> DONE!")
         print("Result files saved in ", output_path)

@@ -40,6 +40,20 @@ that bucket's batch shape (pipeline.PoseEstimator.run_from_frames with
 chunk = bucket, then the REBA/RULA engines), since padding edge-repeats
 the last request as run_from_frames pads its last chunk.
 
+Under a mesh (cfg.PARALLEL's data, model, stage and expert axes over
+torch.distributed, parallel/), every rank builds the server; rank 0 owns
+the request queue and the dispatcher and broadcasts each padded bucket
+batch to a worker loop on the other ranks, which stops on a sentinel at
+``close()``. Buckets round up to the mesh quantum (the data axis, times
+stage_microbatches under pp), and each data rank scores its rows of a
+batch, as the estimator splits a chunk; the results are all-gathered.
+What runs where: with a data axis alone, a bucket's CUDA graph covers the
+rank's own rows (crop -> pose -> scores), and the gather follows the
+replay outside the graph. Where collectives sit inside the step (tp, pp,
+ep) the step runs eagerly on the card: gloo cannot be captured, and
+capturing NCCL's collectives in the graphs is later work (ROADMAP). The
+spatial axis raises (ROADMAP Queue 1 item 15b).
+
 >>> with PoseScoringServer(frame_hw=(450, 800)) as server:
 ...     res = server.score(frame_u8, np.array([400., 225., 220., 220.]))
 ...     res.reba, res.rula, res.euler_deg.shape
@@ -66,7 +80,7 @@ from poserisk_release_tpu_torch.pipeline import PoseEstimator, build_detector
 from poserisk_release_tpu_torch.scoring import reba as reba_mod
 from poserisk_release_tpu_torch.scoring import rula as rula_mod
 from poserisk_release_tpu_torch.streaming import OnlineTargetTracker
-from poserisk_release_tpu_torch.throughput import default_packed_infos
+from poserisk_release_tpu_torch.throughput import default_packed_infos, make_pose_core
 from poserisk_release_tpu_torch.tracking.mpt import detect_frames
 
 # Eager runs of the step on the capture stream before each capture: cuDNN
@@ -169,13 +183,15 @@ class PoseScoringServer:
         Same contracts as pipeline.PoseEstimator (bf16 backbone under
         ``fast``; int8-PTQ SPIN calibrated on the first real batch under
         ``spin_int8``, after which the server captures its bucket graphs
-        anew, once). A non-default cfg.PARALLEL raises, as in the estimator.
+        anew, once). A cfg.PARALLEL that describes a mesh serves on it, on
+        every rank of the process group (module docstring).
     add_info:
         The reference's additional-information dict (load_add_info format);
         defaults to the packaged default_information.json. Fixed per server:
         run one server per info profile.
     batch_sizes:
         The bucket ladder, unique and ascending: one CUDA graph each.
+        Under a mesh each bucket rounds up to the mesh quantum.
     max_delay_ms:
         How long the dispatcher waits after the FIRST queued request for
         more to coalesce. 0 serves strictly one batch per poll.
@@ -230,6 +246,19 @@ class PoseScoringServer:
         self.estimator = PoseEstimator(
             self.cfg, SMPLFamily(self.cfg.SPIN.smpl_model_dir), variables=spin_variables,
             fast=fast, spin_int8=spin_int8, gender=gender, device=self.device)
+        self._mesh = self.estimator.mesh
+        self._rank = 0
+        if self._mesh is not None:
+            import torch.distributed as dist
+
+            # Mesh quantum: every bucket splits over the data axis (and
+            # each data rank's rows into stage_microbatches under pp).
+            # Buckets round UP: padding only widens, no request is dropped.
+            q = self.estimator._n_data
+            if self.estimator._pp:
+                q *= int(self.cfg.PARALLEL.stage_microbatches)
+            self.batch_sizes = tuple(sorted({((b + q - 1) // q) * q for b in self.batch_sizes}))
+            self._rank = dist.get_rank()
         if calibration_crops is not None:
             self.estimator.calibrate_spin(calibration_crops)
         if add_info is None:
@@ -260,7 +289,15 @@ class PoseScoringServer:
         self._batch_fills: "deque[Tuple[int, int]]" = deque(maxlen=4096)
         self._n_requests = 0
         self._n_batches = 0
+        self._worker_error: Optional[BaseException] = None
 
+        if self._rank != 0:
+            # The other ranks' worker loop answers rank 0's broadcasts, its
+            # warm-up's included, until the close() sentinel.
+            self._thread = threading.Thread(target=self._worker_loop, daemon=True,
+                                            name="poserisk-serving-worker")
+            self._thread.start()
+            return
         if warm:
             self._warmup()
         self._thread = threading.Thread(target=self._dispatch_loop,
@@ -271,26 +308,40 @@ class PoseScoringServer:
     def _make_step(self):
         """The fused step on the estimator's CURRENT pose core (int8
         calibration swaps it): crop + pose (run_from_frames' per-chunk
-        step) + REBA/RULA on the card."""
+        step) + REBA/RULA on the card, on this data rank's rows. With a
+        data axis alone the step stops short of the rows' gather, which
+        _run_bucket does after it, outside the bucket's graph."""
         est = self.estimator
         info_reba, info_rula = self._info_reba, self._info_rula
+        pose_step = est._pose_step_from_frames
+        if self._mesh is not None and not self._model_axes:
+            core = make_pose_core(est.parents, quant_backbone=est._quant_backbone)
+
+            def pose_step(frames_u8, bboxes):
+                return core(est.model, est.smpl_params, est._crop(frames_u8, bboxes))
 
         def step(frames_u8: torch.Tensor, bboxes: torch.Tensor):
-            euler, joint_cam, _aa = est._pose_step_from_frames(frames_u8, bboxes)
+            euler, joint_cam, _aa = pose_step(frames_u8, bboxes)
             reba = reba_mod.reba_frame_scores(euler, info_reba)["score"]
             rula = rula_mod.rula_frame_scores(euler, info_rula)["score"]
             return reba, rula, euler, joint_cam
 
         return step
 
+    @property
+    def _model_axes(self) -> bool:
+        return self.estimator._tp or self.estimator._pp or self.estimator._ep
+
     def _build_steps(self) -> Dict[int, object]:
         """One bucket graph per bucket on the card (captured on first use,
-        one shared memory pool), the eager step elsewhere."""
+        one shared memory pool, over this data rank's rows of the bucket),
+        the eager step elsewhere and wherever collectives sit inside it."""
         step = self._make_step()
-        if not self._cuda:
+        if not self._cuda or self._model_axes:
             return {b: step for b in self.batch_sizes}
         pool = torch.cuda.graph_pool_handle()
-        return {b: _BucketGraph(step, b, self.frame_hw, self.device, pool, self._stream)
+        n = self.estimator._n_data
+        return {b: _BucketGraph(step, b // n, self.frame_hw, self.device, pool, self._stream)
                 for b in self.batch_sizes}
 
     def _release_steps(self) -> None:
@@ -320,7 +371,43 @@ class PoseScoringServer:
     def _run_bucket(self, frames: np.ndarray, bboxes: np.ndarray,
                     allow_calibration: bool = True):
         """One padded batch through its bucket: host (reba, rula, euler,
-        joint_cam) arrays."""
+        joint_cam) arrays. Under a mesh rank 0 first broadcasts the batch to
+        the other ranks' worker loops."""
+        if self._mesh is not None:
+            self._broadcast_batch(frames, bboxes, allow_calibration)
+        return self._run_bucket_here(frames, bboxes, allow_calibration)
+
+    # -- the mesh: rank 0 -> worker loops ------------------------------------
+    def _broadcast_batch(self, frames, bboxes, allow_calibration: bool) -> None:
+        """Rank 0's half of one batch (frames None: the close() sentinel):
+        a header (bucket, allow_calibration), then frames and boxes."""
+        from poserisk_release_tpu_torch.parallel.collectives import broadcast
+
+        bucket = 0 if frames is None else frames.shape[0]
+        broadcast(torch.tensor([bucket, int(allow_calibration)], dtype=torch.int64), 0)
+        if bucket:
+            broadcast(torch.from_numpy(np.ascontiguousarray(frames)), 0)
+            broadcast(torch.from_numpy(np.ascontiguousarray(bboxes, np.float32)), 0)
+
+    def _worker_loop(self) -> None:
+        from poserisk_release_tpu_torch.parallel.collectives import broadcast
+
+        try:
+            while True:
+                bucket, allow = broadcast(torch.zeros(2, dtype=torch.int64), 0).tolist()
+                if not bucket:
+                    return
+                frames = broadcast(torch.empty((bucket, *self.frame_hw, 3), dtype=torch.uint8), 0)
+                boxes = broadcast(torch.empty((bucket, 4), dtype=torch.float32), 0)
+                self._run_bucket_here(frames.numpy(), boxes.numpy(), bool(allow))
+        except BaseException as exc:  # surfaced by close(); the run cannot go on
+            self._worker_error = exc
+            raise
+
+    def _run_bucket_here(self, frames: np.ndarray, bboxes: np.ndarray,
+                         allow_calibration: bool):
+        """This rank's part of one batch (every rank under a mesh): the
+        whole batch's host outputs."""
         if allow_calibration and self.estimator.spin_needs_calibration:
             # The first real batch calibrates the int8 backbone, as
             # run_from_frames does; the quantized core replaces the f32 one,
@@ -332,23 +419,39 @@ class PoseScoringServer:
                 out_size=int(self.cfg.MODEL.input_shape[0])))
             self._release_steps()
             self._steps = self._build_steps()
+        from poserisk_release_tpu_torch.parallel.mesh import gather_rows, shard_rows
+
         bucket = frames.shape[0]
-        if not self._cuda:
+        step = self._steps[bucket]
+        if isinstance(step, _BucketGraph):
+            host_frames, host_boxes = self._staging[bucket]
+            # The dispatcher stacks into the staging itself; other callers'
+            # arrays are copied in.
+            if not np.may_share_memory(frames, host_frames.numpy()):
+                np.copyto(host_frames.numpy(), frames)
+            if not np.may_share_memory(bboxes, host_boxes.numpy()):
+                np.copyto(host_boxes.numpy(), bboxes)
+            with torch.cuda.device(self.device):
+                outs = step.run(shard_rows(host_frames, self._mesh),
+                                shard_rows(host_boxes, self._mesh))
+            self.graph_replays += 1
+        else:
             with torch.inference_mode():
-                outs = self._steps[bucket](torch.from_numpy(np.ascontiguousarray(frames)),
-                                           torch.from_numpy(np.ascontiguousarray(bboxes)))
-            return tuple(o.numpy() for o in outs)
-        host_frames, host_boxes = self._staging[bucket]
-        # The dispatcher stacks into the staging itself; other callers' arrays
-        # are copied in.
-        if not np.may_share_memory(frames, host_frames.numpy()):
-            np.copyto(host_frames.numpy(), frames)
-        if not np.may_share_memory(bboxes, host_boxes.numpy()):
-            np.copyto(host_boxes.numpy(), bboxes)
-        with torch.cuda.device(self.device):
-            outs = self._steps[bucket].run(host_frames, host_boxes)
-        self.graph_replays += 1
-        return outs
+                outs = step(shard_rows(torch.from_numpy(np.ascontiguousarray(frames)),
+                                       self._mesh).to(self.device),
+                            shard_rows(torch.from_numpy(np.ascontiguousarray(bboxes)),
+                                       self._mesh).to(self.device))
+            outs = tuple(o.cpu().numpy() for o in outs)
+        if self._mesh is None or self._model_axes:
+            return outs  # the estimator's step gathered the rows already
+        # The rows' gather, outside the graph: scores travel as float32
+        # (small integers, exact) in one collective with the angles.
+        n = outs[0].shape[0]
+        packed = torch.cat([torch.from_numpy(np.asarray(o, np.float32)).reshape(n, -1)
+                            for o in outs], dim=1)
+        packed = gather_rows(packed, self._mesh).numpy()
+        reba, rula = (packed[:, k].astype(outs[k].dtype) for k in (0, 1))
+        return (reba, rula, packed[:, 2:74].reshape(-1, 24, 3), packed[:, 74:].reshape(-1, 24, 3))
 
     # -- request path --------------------------------------------------------
     def submit(self, frame: np.ndarray, bbox: np.ndarray) -> "Future[ScoredPose]":
@@ -360,6 +463,8 @@ class PoseScoringServer:
         submit() owns its inputs from the moment it returns: the frame and
         bbox are copied at enqueue, so a caller may reuse its capture buffer
         at once."""
+        if self._rank != 0:
+            raise RuntimeError("requests go to rank 0's server; this rank runs a worker loop")
         if self._closed.is_set():
             raise RuntimeError("server is closed")
         frame = np.asarray(frame)
@@ -466,11 +571,21 @@ class PoseScoringServer:
 
     def close(self, timeout: float = 10.0) -> None:
         """Stop the dispatcher; pending futures fail with RuntimeError. The
-        bucket graphs are released once the dispatcher has stopped."""
+        bucket graphs are released once the dispatcher has stopped. Under a
+        mesh rank 0 then sends the worker loops their sentinel, and the
+        other ranks' close() waits for it (and re-raises a worker's error)."""
         if self._closed.is_set():
             return
         self._closed.set()
+        if self._rank != 0:
+            self._thread.join()
+            self._release_steps()
+            if self._worker_error is not None:
+                raise RuntimeError("the serving worker loop failed") from self._worker_error
+            return
         self._thread.join(timeout)
+        if self._mesh is not None and not self._thread.is_alive():
+            self._broadcast_batch(None, None, False)
         while True:
             try:
                 r = self._queue.get_nowait()

@@ -303,9 +303,10 @@ class StreamingScorer:
     >>> scorer = StreamingScorer(detector=StubDetector())
     >>> result = scorer(video_path, add_info)
 
-    The JAX scorer's arguments except `mesh` (one device: a non-default
-    cfg.PARALLEL raises, as in the Predictor), plus `device`: CUDA unless
-    given, and raises without it.
+    The JAX scorer's arguments except `mesh`, plus `device`: CUDA unless
+    given, and raises without it. It runs on one device: a cfg.PARALLEL
+    that describes a mesh raises (the scorer under a mesh comes with the
+    spatial axis, ROADMAP Queue 1 item 15b).
     """
 
     def __init__(
@@ -324,6 +325,11 @@ class StreamingScorer:
         if selection not in ("reference", "online"):
             raise ValueError(f"selection must be 'reference' or 'online', got {selection!r}")
         self.cfg = cfg or default_config()
+        pcfg = self.cfg.PARALLEL
+        if (pcfg.model, pcfg.spatial, pcfg.stage, pcfg.expert) != (1, 1, 1, 1) or pcfg.num_devices > 1:
+            raise NotImplementedError(
+                "StreamingScorer under a mesh is not in the PyTorch port yet "
+                "(ROADMAP Queue 1 item 15b); it runs on one device")
         self.device = resolve_device(device)
         self.window = window
         self.selection = selection

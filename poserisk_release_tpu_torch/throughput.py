@@ -19,6 +19,7 @@ import torch
 from poserisk_release_tpu_torch.models.spin import hmr_forward_quant
 from poserisk_release_tpu_torch.ops.lbs import joints_only
 from poserisk_release_tpu_torch.ops.rotations import (
+    axis_angle_to_rotmat_smpl,
     rotmat_to_axis_angle,
     rotmat_to_euler_deg,
     slerp_rotmat,
@@ -28,7 +29,8 @@ ROOT_POSE = (3.14, 0.0, 0.0)
 
 
 def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1,
-                   quant_backbone: Dict | None = None):
+                   quant_backbone: Dict | None = None, spin_forward=None,
+                   expert_joints=None, mesh=None):
     """THE pose step (one definition so the subtle ordering cannot
     desynchronise): SPIN forward -> Euler from the ORIGINAL rotmats ->
     axis-angle with the root forced to ROOT_POSE (the reference mutates its
@@ -47,20 +49,37 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1,
     (f32 strict, bf16 fast). The IEF head and everything after it are
     unchanged.
 
+    The mesh hooks (parallel/): spin_forward(crops) -> (rotmat, betas,
+    cam) replaces the HMR module's forward (the tensor-parallel HMR, or the
+    pipelined one, which reads only the batch size of `crops` on stages
+    after the first). expert_joints (parallel/expert.
+    make_expert_joints) replaces joints_only: smpl_params are then this
+    rank's expert's tables plus a scalar int32 ``gender_id``. With a mesh
+    whose data axis is wider than 1, `crops` are this data rank's rows of
+    the chunk's anchors: the slerp runs over the whole chunk's anchors
+    (all-gathered), and the outputs are all-gathered so every rank returns
+    the whole chunk, as the JAX step over a sharded batch does.
+
     Returns core(spin_model, smpl_params, crops) ->
     (euler_deg (B, 24, 3), joint_cam_mm (B, 24, 3), aa_forced (B, 24, 3)),
-    where B = crops.shape[0] * pose_stride; spin_model is the HMR module.
+    where B = crops.shape[0] * pose_stride (times the data axis under a
+    mesh); spin_model is the HMR module.
     """
+    from poserisk_release_tpu_torch.parallel.mesh import gather_rows, shard_rows
+
     if pose_stride < 1:
         raise ValueError(f"pose_stride must be >= 1, got {pose_stride}")
 
     def core(spin_model, smpl_params: Dict[str, torch.Tensor], crops: torch.Tensor):
-        if quant_backbone is None:
+        if spin_forward is not None:
+            rotmat, _betas, _cam = spin_forward(crops)
+        elif quant_backbone is None:
             rotmat, _betas, _cam = spin_model(crops)
         else:
             rotmat, _betas, _cam = hmr_forward_quant(quant_backbone, spin_model, crops,
                                                      crops.dtype)
         if pose_stride > 1:
+            rotmat = gather_rows(rotmat, mesh)
             anchors = rotmat.shape[0]
             n_frames = anchors * pose_stride
             idx = torch.arange(n_frames, device=rotmat.device)
@@ -71,14 +90,23 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1,
                 rotmat[torch.clamp(grp + 1, max=anchors - 1)],
                 (t / pose_stride)[:, None, None],
             )
+            rotmat = shard_rows(rotmat, mesh)
         euler = rotmat_to_euler_deg(rotmat)
         aa = rotmat_to_axis_angle(rotmat)
         aa_forced = aa.clone()
         for axis, value in enumerate(ROOT_POSE):  # fills: no host copy, capturable
             aa_forced[:, 0, axis] = value
-        joints = joints_only(smpl_params, aa_forced.reshape(aa.shape[0], -1), parents)
+        if expert_joints is None:
+            joints = joints_only(smpl_params, aa_forced.reshape(aa.shape[0], -1), parents)
+        else:
+            local = {k: v for k, v in smpl_params.items() if k != "gender_id"}
+            gids = smpl_params["gender_id"].expand(aa_forced.shape[0])
+            joints = expert_joints(local, axis_angle_to_rotmat_smpl(aa_forced), gids)
         joints = joints * 1000.0
         joint_cam = joints - joints[:, :1]
+        if mesh is not None:
+            out = gather_rows(torch.cat([euler, joint_cam, aa_forced], dim=2), mesh)
+            euler, joint_cam, aa_forced = out[..., :3], out[..., 3:6], out[..., 6:]
         return euler, joint_cam, aa_forced
 
     return core
@@ -180,6 +208,17 @@ def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: in
         return step(yolo_model, spin_model, smpl_params, frames, bboxes, info_reba, info_rula)
 
     return bound
+
+
+def score_histogram_psum(scores: torch.Tensor, group, max_score: int = 12) -> torch.Tensor:
+    """Per-rank score histogram (max_score float32 bins; score k counts in
+    bin k - 1, clipped into range) summed over the group's ranks: the
+    metric-reduction collective of the distributed design."""
+    from poserisk_release_tpu_torch.parallel.collectives import all_reduce_sum
+
+    idx = torch.clamp(scores.long() - 1, 0, max_score - 1)
+    local = torch.nn.functional.one_hot(idx, max_score).to(torch.float32).sum(dim=0)
+    return all_reduce_sum(local, group)
 
 
 def default_packed_infos() -> Tuple[np.ndarray, np.ndarray]:

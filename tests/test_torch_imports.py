@@ -36,10 +36,14 @@ def _port_modules():
 
 
 def test_importing_every_module_loads_no_jax():
+    """...and creates no process group: importing parallel/* (or anything
+    else) must not join or start a torch.distributed group."""
     mods = _port_modules()
     for mod in ("ops.resample", "ops.skin", "ops.lbs", "models.detector", "throughput",
                 "ops.qconv", "ops.yolo_stage", "models.resnet_int8", "tools.exp_fused_stage",
-                "tools.exp_window_crop", "streaming", "serving"):
+                "tools.exp_window_crop", "streaming", "serving", "parallel", "parallel.mesh",
+                "parallel.distributed", "parallel.collectives", "parallel.spmd",
+                "parallel.pipeline", "parallel.expert"):
         assert f"poserisk_release_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
@@ -47,12 +51,14 @@ def test_importing_every_module_loads_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'poserisk_release_tpu' or m.startswith('poserisk_release_tpu.')]\n"
         "print(sorted(bad))\n"
+        "import torch.distributed as dist\n"
+        "print(dist.is_available() and dist.is_initialized())\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    assert out.stdout.split() == ["[]", "False"]
 
 
 SOURCES = ["chip_smoke.py"] + sorted(
@@ -90,17 +96,19 @@ def test_predictor_and_cli_without_device_raise_when_cuda_absent(no_cuda, tmp_pa
 
 
 @pytest.mark.parametrize("argv", [
-    ["--tp", "2"], ["--num_devices", "2"], ["--streaming", "--tp", "2"], ["--sp", "2"],
-    ["--pp", "2"], ["--ep", "2"],
+    ["--streaming", "--tp", "2"], ["--streaming", "--num_devices", "2"],
+    ["--streaming", "--pp", "2"], ["--sp", "2"], ["--streaming", "--sp", "2"],
+    ["--streaming", "--ep", "3"],
 ])
 def test_cli_rejects_later_slice_flags(argv, capsys):
-    """The mesh flags are refused, with --streaming too (which is in the
-    port now: test_streaming_without_device_raises_when_cuda_absent)."""
+    """--sp is refused, and so is --streaming under a mesh: both are
+    ROADMAP item 15b (the other mesh flags are in the port now:
+    tests/test_torch_parallel.py)."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["--cpu"] + argv)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP" in err and "item 15" in err
+    assert "ROADMAP" in err and "item 15b" in err
 
 
 def test_streaming_without_device_raises_when_cuda_absent(no_cuda, tmp_path):

@@ -209,9 +209,12 @@ def test_constructor_contracts():
         PoseScoringServer(cfg=_cfg(), batch_sizes=(4, 1), warm=False, device="cpu")
     with pytest.raises(ValueError, match="pose_stride"):
         PoseScoringServer(cfg=_cfg(SPIN={"pose_stride": 2}), warm=False, device="cpu")
-    # The mesh quantum and data-axis sharding come with ROADMAP item 15.
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # A mesh needs a process group (tests/test_torch_parallel_ranks.py
+    # serves on gloo ranks); the spatial axis is ROADMAP item 15b.
+    with pytest.raises(RuntimeError, match="process group"):
         PoseScoringServer(cfg=_cfg(PARALLEL={"num_devices": 2}), warm=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        PoseScoringServer(cfg=_cfg(PARALLEL={"spatial": 2}), warm=False, device="cpu")
 
 
 def test_latency_metrics_populated(server):
