@@ -49,6 +49,19 @@ counter set to 0 just before it and read just after:
   cards, else ranks sharing cuda:0 over gloo, staged through the host);
   scores equal the single-card step's, Euler and joints within the CPU
   tests' limits, and every data rank on stage 0 launches K1;
+* the data preparation (data_prep): tools/data_preprocessing.person_chunks
+  on the tracked frames and io/images.get_single_image_crop, both through
+  K1, equal to the plain crop exactly (the chunks' uint8 BGR images, and
+  K1 on each chunk's frames in f32);
+* training (train_single): train.step.TrainState at full width, 64 crops
+  of 224x224 from K1, adam, six steps with whole-backbone remat and six
+  without (ms per step, max_memory_allocated), a checkpoint round trip into
+  PoseEstimator equal to the trained model's forward, and one SGD step at
+  B = 2 held against the port's CPU step, its update leaf by leaf;
+* training under a mesh (train_mesh): one SGD step at B = 16 under dp 4
+  and dp 2 x tp 2 on 4 spawned ranks (sharing cuda:0 over gloo on a
+  one-card machine), each equal to the single-card step (its update leaf
+  by leaf), K1 on every rank;
 * the experiment paths of K5 (tools/exp_fused_stage: the fused int8
   residual stage against its plain version and the per-conv int8 chain, at
   the three stage shapes) and K3 with K1m (tools/exp_window_crop: the
@@ -1510,6 +1523,365 @@ def parallel_path(device, frames, bboxes, track_frames, variables, smpl, cfg) ->
     return launches
 
 
+# -- the training side (train/*) and its data preparation ---------------------
+PREP_FPS = 12.0  # 8 s (MIN_SEC) at 12 fps: one 96-frame chunk of each track
+TRAIN_B, TRAIN_STEPS, TRAIN_CPU_B, TRAIN_MESH_B = 64, 6, 2, 16
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-4, 5e-4  # tests/test_torch_train.py
+# The steps held against a reference take SGD at lr 10, so that each leaf's
+# update (-lr * grad) stands far above its parameters' f32 rounding; each
+# update is then held to a share of the reference update's largest element
+# (tests/test_torch_train_ranks.py holds 1e-3 at 64x64). At full width f32
+# itself lies up to 1.3e-3 of a leaf's largest update from the f64 step
+# (train_single's cpu_vs_f64), so two f32 steps may differ by twice that:
+# 1e-2 leaves room and stays far below a wrong backward (a planted fault
+# is off by 0.99 to 3).
+TRAIN_CHECK_LR, TRAIN_UPDATE_RTOL = 10.0, 1e-2
+TRAIN_MESH_LAYOUTS = (("dp4", {"data": 4}), ("dp2_tp2", {"data": 2, "model": 2}))
+
+
+def data_prep(device, frames, tracks) -> int:
+    """tools/data_preprocessing.person_chunks on the smoke's frames and the
+    StubDetector tracks (at PREP_FPS, so each track gives one MIN_SEC chunk):
+    its uint8 BGR images equal those of the plain crop on the card exactly,
+    and K1 (crop_batch) on each chunk's frames equals the plain crop exactly
+    in f32; then io/images.get_single_image_crop on one frame (K1 at
+    B = 1), held the same way. Returns K1's launches (those of the path,
+    not of the comparison)."""
+    from poserisk_release_tpu_torch.io.images import get_single_image_crop
+    from poserisk_release_tpu_torch.ops.crop import crop_batch, crop_batch_plain
+    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
+    from poserisk_release_tpu_torch.tools.data_preprocessing import BBOX_SCALE, person_chunks
+
+    sync(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    chunks = list(person_chunks(frames, PREP_FPS, tracks, device=device))
+    prep_s = time.perf_counter() - t0
+    box = np.asarray(tracks[next(iter(tracks))]["bbox"][0], np.float32)
+    single = get_single_image_crop(frames[0], box, device=device)
+    sync(device)
+    launches = crop_batch_cuda.launches
+    crop_err = image_err = 0.0
+    for c in chunks:
+        f = torch.as_tensor(frames[c["frames"]], device=device)
+        b = torch.as_tensor(c["bbox"], device=device)
+        want = crop_batch_plain(f, b, BBOX_SCALE).cpu().numpy()
+        got = crop_batch(f, b, BBOX_SCALE).cpu().numpy()
+        crop_err = max(crop_err, float(np.abs(got - want).max()))
+        image_err = max(image_err, float(np.abs(
+            c["images_bgr"].astype(int) - (want[..., ::-1] * 255).astype(np.uint8)).max()))
+    want1 = crop_batch_plain(torch.as_tensor(frames[:1], device=device),
+                             torch.as_tensor(box[None], device=device), 1.3).cpu().numpy()[0]
+    single_err = float(np.abs(single - want1).max())
+    print(json.dumps({"phase": "data_prep", "chunks": len(chunks),
+                      "frames_per_chunk": [len(c["frames"]) for c in chunks],
+                      "fps": PREP_FPS, "seconds": prep_s, "k1_launches": launches,
+                      "crops_max_abs_err": crop_err, "bgr_u8_max_abs_err": image_err,
+                      "single_image_crop_max_abs_err": single_err}))
+    if not chunks or crop_err != 0.0 or image_err != 0.0 or single_err != 0.0:
+        raise AssertionError("data_prep: the crops differ from the plain crop")
+    if launches < len(chunks) + 1:
+        raise AssertionError(f"data_prep launched K1 {launches} times for {len(chunks)} chunks")
+    return launches
+
+
+def _train_crops(device, frames, bboxes, track_frames, n: int) -> torch.Tensor:
+    """The first n tracked frames cropped to 224x224 f32 (K1 on the card)."""
+    from poserisk_release_tpu_torch.ops.crop import crop_batch
+
+    f = torch.as_tensor(np.ascontiguousarray(frames[track_frames[:n]]), device=device)
+    return crop_batch(f, torch.as_tensor(np.asarray(bboxes[:n], np.float32), device=device))
+
+
+def _max_param_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max()) for k in b
+               if not k.endswith("num_batches_tracked"))
+
+
+def _update_check(before: dict, got: dict, want: dict) -> dict:
+    """Each trained leaf's update after - before (f64 from the f32 values),
+    got's against want's as a share of want's largest element
+    (tests/test_torch_train_ranks.assert_update_matches): the worst share,
+    its leaf and that leaf's largest reference update, the largest update
+    of all, and the trained leaves that did not move in want or in got."""
+    out = {"update_worst_rel": 0.0, "update_worst_leaf": None, "update_worst_leaf_max": None,
+           "update_max_abs_ref": 0.0, "leaves_not_moved": []}
+    for k, b in before.items():
+        if k.endswith(("running_mean", "running_var", "num_batches_tracked")):
+            continue
+        b = b.double().cpu()
+        d_want, d_got = want[k].double().cpu() - b, got[k].double().cpu() - b
+        scale = float(d_want.abs().max())
+        if scale == 0.0 or float(d_got.abs().max()) == 0.0:
+            out["leaves_not_moved"].append(k)
+            continue
+        ratio = float((d_got - d_want).abs().max()) / scale
+        out["update_max_abs_ref"] = max(out["update_max_abs_ref"], scale)
+        if ratio >= out["update_worst_rel"]:
+            out.update(update_worst_rel=ratio, update_worst_leaf=k, update_worst_leaf_max=scale)
+    return out
+
+
+def _sgd_step_f64(cfg, smpl, variables, crops, targets) -> dict:
+    """The SGD step (lr TRAIN_CHECK_LR) of the card-vs-CPU check in f64 on
+    the CPU, through make_train_step (its features pass through f32 once):
+    the near-exact update that sizes f32's own error. Returns the state_dict
+    after it."""
+    from poserisk_release_tpu_torch.models.spin import HMR
+    from poserisk_release_tpu_torch.ops.lbs import smpl_params_to_torch
+    from poserisk_release_tpu_torch.train.optim import get_optimizer
+    from poserisk_release_tpu_torch.train.step import make_train_step, trainable_tensors
+
+    model = HMR(n_iter=cfg.SPIN.ief_iters)
+    model.load_state_dict(variables)
+    model = model.double().eval()
+    tensors = list(trainable_tensors(model).values())
+    for t in tensors:
+        t.requires_grad_(True)
+    parents = np.asarray(smpl["neutral"].kintree_parents).copy()
+    parents[0] = 0
+    params = {k: v.double() if v.is_floating_point() else v
+              for k, v in smpl_params_to_torch(smpl["neutral"], "cpu").items()}
+    step = make_train_step(cfg.SPIN.ief_iters, tuple(int(p) for p in parents),
+                           get_optimizer("sgd", TRAIN_CHECK_LR)(tensors), remat=False)
+    step(model, params, crops.double().cpu(), targets.double().cpu())
+    return {k: v.detach() for k, v in model.state_dict().items()}
+
+
+def _update_ok(u: dict) -> bool:
+    return u["update_worst_rel"] <= TRAIN_UPDATE_RTOL and not u["leaves_not_moved"]
+
+
+def train_single(device, frames, bboxes, track_frames, variables, smpl, cfg, smi) -> int:
+    """TrainState at full width on the card: B = 64 crops of 224x224 made
+    by K1 from the tracked frames, targets the port's strict pose-path
+    joints of the same frames (root-centred, m) plus seeded noise, adam at
+    lr 1e-4. Six steps each with whole-backbone remat on and off: ms per
+    step (CUDA events, median of the last 4), max_memory_allocated, the
+    loss finite at every step and lower at step 6 than at step 1, the
+    parameters finite. Then a checkpoint round trip (save_checkpoint ->
+    load_checkpoint -> PoseEstimator(variables=...)) that must give exactly
+    the trained model's forward, and one SGD step (lr 10) at B = 2 held
+    against the port's CPU step: loss rtol 1e-4, parameters atol 5e-4, and
+    each trained leaf's update within 1e-2 of the CPU update's largest
+    element, every leaf having moved; beside it, each f32 step against the
+    same step in f64 on the CPU. Returns K1's launches."""
+    from poserisk_release_tpu_torch.models.convert import flax_to_state_dict
+    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
+    from poserisk_release_tpu_torch.pipeline import PoseEstimator
+    from poserisk_release_tpu_torch.train.optim import load_checkpoint, save_checkpoint
+    from poserisk_release_tpu_torch.train.step import TrainState
+
+    cuda = torch.device(device).type == "cuda"
+    sync(device)
+    reset_launch_counts()
+    crops = _train_crops(device, frames, bboxes, track_frames, TRAIN_B)
+    est = PoseEstimator(cfg, smpl, variables=variables, device=device)
+    _e, joint_cam, _aa = est.run_from_frames(frames, track_frames[:TRAIN_B], bboxes[:TRAIN_B],
+                                             chunk=TRAIN_B)
+    del est
+    noise = np.random.RandomState(9).normal(0.0, 0.01, joint_cam.shape)
+    targets = torch.as_tensor((joint_cam / 1000.0 + noise).astype(np.float32), device=device)
+    sync(device)
+    launches = crop_batch_cuda.launches
+
+    runs = {}
+    for remat in (True, False):
+        state = TrainState.create(cfg, smpl, variables=variables, optimizer_name="adam",
+                                  lr=1e-4, remat=remat, device=device)
+        sync(device)
+        base = peak = None
+        if cuda:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        losses, ms = [], []
+        for _ in range(TRAIN_STEPS):
+            box = {}
+            ms.append(elapsed_ms(lambda: box.update(loss=state.step(crops, targets)[1]), device))
+            losses.append(box["loss"])
+        if cuda:
+            peak = torch.cuda.max_memory_allocated(device)
+        finite = all(bool(torch.isfinite(v).all()) for v in state.state_dict().values())
+        runs[remat] = {"losses": losses, "ms_per_step": float(np.median(ms[-4:])),
+                       "ms_all": ms, "max_memory_allocated": peak, "memory_before": base,
+                       "params_finite": finite}
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and finite):
+            raise AssertionError(f"train_single remat={remat}: losses {losses}, finite {finite}")
+        if remat:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+                path = save_checkpoint(state.variables(), epoch=TRAIN_STEPS, checkpoint_dir=ckpt)
+                restored = flax_to_state_dict(load_checkpoint(path))
+            loaded = PoseEstimator(cfg, smpl, variables=restored, device=device)
+            with torch.inference_mode():
+                same = all(torch.equal(a, b) for a, b in
+                           zip(state.model(crops[:8]), loaded.model(crops[:8])))
+            del loaded
+            if not same:
+                raise AssertionError("the checkpoint's PoseEstimator differs from the trained model")
+        del state
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # One SGD step at B = 2, the card against the port's CPU path.
+    small = (crops[:TRAIN_CPU_B], targets[:TRAIN_CPU_B])
+    out = {}
+    for dev in (device, "cpu"):
+        st = TrainState.create(cfg, smpl, variables=variables, optimizer_name="sgd",
+                               lr=TRAIN_CHECK_LR, remat=False, device=dev)
+        st, loss = st.step(*(x.to(dev) for x in small))
+        out[str(dev)] = (loss, st.state_dict())
+        del st
+    (card_loss, card_sd), (cpu_loss, cpu_sd) = out[str(device)], out["cpu"]
+    d_param = _max_param_diff(card_sd, cpu_sd)
+    update = _update_check(variables, card_sd, cpu_sd)
+    exact = _sgd_step_f64(cfg, smpl, variables, *small)
+    update["card_vs_f64_worst_rel"] = _update_check(variables, card_sd, exact)["update_worst_rel"]
+    update["cpu_vs_f64_worst_rel"] = _update_check(variables, cpu_sd, exact)["update_worst_rel"]
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    r, nr = runs[True], runs[False]
+    print(json.dumps({
+        "phase": "train_single", "nvidia_smi": smi, "batch": TRAIN_B, "crop": [OUT, OUT],
+        "optimizer": "adam", "lr": 1e-4, "steps": TRAIN_STEPS, "k1_launches": launches,
+        "remat": r, "no_remat": nr,
+        "remat_peak_over_no_remat": (r["max_memory_allocated"] / nr["max_memory_allocated"]
+                                     if cuda else None),
+        "remat_ms_over_no_remat": r["ms_per_step"] / nr["ms_per_step"],
+        "checkpoint_forward_equal": True,
+        "sgd_b2_vs_cpu": {"lr": TRAIN_CHECK_LR, "loss_card": card_loss, "loss_cpu": cpu_loss,
+                          "loss_rel_diff": loss_rel, "param_max_abs_diff": d_param, **update},
+        "tf32": [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]}))
+    if loss_rel > TRAIN_LOSS_RTOL or d_param > TRAIN_PARAM_ATOL or not _update_ok(update):
+        raise AssertionError(f"train step card vs CPU: loss {loss_rel}, params {d_param}, "
+                             f"update {update}")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the training step left TF32 on")
+    if launches <= 0:
+        raise AssertionError("train_single launched no crop kernel")
+    return launches
+
+
+def train_mesh_rank(rank: int, root: str, cfg, on_cpu: bool) -> None:
+    """One rank of train_mesh: K1 crops of the shared B = 16 frames on this
+    rank's device, then one SGD step per layout of TRAIN_MESH_LAYOUTS, each
+    a fresh TrainState on its own DeviceMesh. Writes its numbers (and, on
+    rank 0, the gathered weights) to root."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from poserisk_release_tpu_torch.body.smpl import SMPLFamily
+    from poserisk_release_tpu_torch.ops.crop import crop_batch
+    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
+    from poserisk_release_tpu_torch.parallel.collectives import transport
+    from poserisk_release_tpu_torch.parallel.distributed import rank_device
+    from poserisk_release_tpu_torch.train.step import TrainState
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // PARALLEL_WORLD))
+    device = rank_device(cpu=on_cpu)
+    cuda = device.type == "cuda"
+    variables = torch.load(os.path.join(root, "weights.pt"))
+    batch = np.load(os.path.join(root, "batch.npz"))
+    smpl = SMPLFamily(cfg.SPIN.smpl_model_dir)
+    reset_launch_counts()
+    crops = crop_batch(torch.as_tensor(batch["frames"], device=device),
+                       torch.as_tensor(batch["boxes"], device=device))
+    sync(device)
+    out = {"k1": crop_batch_cuda.launches, "device": str(device), "transport": transport()}
+    mesh_device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    for name, axes in TRAIN_MESH_LAYOUTS:
+        mesh = init_device_mesh(mesh_device, tuple(axes.values()), mesh_dim_names=tuple(axes))
+        state = TrainState.create(cfg, smpl, variables=variables, optimizer_name="sgd",
+                                  lr=TRAIN_CHECK_LR, remat=False, mesh=mesh, device=device)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, loss = state.step(crops, batch["targets"])
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"loss": loss, "ms": ms, "param_bytes": state.param_bytes,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(device) if cuda else None}
+        whole = state.state_dict()  # a collective under tp
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in whole.items()}, os.path.join(root, f"{name}.pt"))
+        out[name] = rec
+        del state, whole
+        if cuda:
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+
+
+def train_mesh(device, frames, bboxes, track_frames, variables, cfg, smi) -> int:
+    """One spawn of 4 ranks: an SGD step at B = 16 (224x224, K1 crops on
+    every rank) under dp 4, then dp 2 x tp 2. Gloo-staged on one card (NCCL
+    where there are 4). Each layout's loss, gathered weights and update
+    equal this process's single-card step (SGD at lr 10) within the CPU
+    tests' limits. Records the
+    per-rank parameter bytes and peaks and the slowest rank's ms: host
+    staging, no speed claim. Returns K1's launches on the ranks."""
+    from poserisk_release_tpu_torch.body.smpl import SMPLFamily
+    from poserisk_release_tpu_torch.parallel.distributed import run_ranks
+    from poserisk_release_tpu_torch.train.step import TrainState
+
+    t_phase = time.perf_counter()
+    ids = track_frames[:TRAIN_MESH_B]
+    chunk_frames = np.ascontiguousarray(frames[ids])
+    chunk_boxes = np.asarray(bboxes[:TRAIN_MESH_B], np.float32)
+    targets = (np.random.RandomState(10).normal(0.0, 0.1, (TRAIN_MESH_B, 24, 3))
+               .astype(np.float32))
+    crops = _train_crops(device, frames, bboxes, track_frames, TRAIN_MESH_B)
+    single = TrainState.create(cfg, SMPLFamily(cfg.SPIN.smpl_model_dir), variables=variables,
+                               optimizer_name="sgd", lr=TRAIN_CHECK_LR, remat=False, device=device)
+    single, want_loss = single.step(crops, targets)
+    want = {k: v.cpu() for k, v in single.state_dict().items()}
+    whole_bytes = single.param_bytes
+    del single, crops
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+    on_cpu = torch.device(device).type != "cuda"
+    backend = "nccl" if not on_cpu and torch.cuda.device_count() >= PARALLEL_WORLD else "gloo"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_mesh_") as root:
+        torch.save(variables, os.path.join(root, "weights.pt"))
+        np.savez(os.path.join(root, "batch.npz"), frames=chunk_frames, boxes=chunk_boxes,
+                 targets=targets)
+        t0 = time.perf_counter()
+        run_ranks(train_mesh_rank, PARALLEL_WORLD, backend, f"file://{root}/init",
+                  args=(root, cfg, on_cpu), timeout=PARALLEL_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(PARALLEL_WORLD)]
+        gathered = {name: torch.load(os.path.join(root, f"{name}.pt"))
+                    for name, _ in TRAIN_MESH_LAYOUTS}
+    k1 = [r["k1"] for r in ranks]
+    bad = []
+    for name, axes in TRAIN_MESH_LAYOUTS:
+        rs = [r[name] for r in ranks]
+        loss_rel = max(abs(r["loss"] - want_loss) / abs(want_loss) for r in rs)
+        d_param = _max_param_diff(gathered[name], want)
+        update = _update_check(variables, gathered[name], want)
+        print(json.dumps({
+            "phase": f"train_mesh_{name}", "nvidia_smi": smi, "transport": ranks[0]["transport"],
+            "mesh": axes, "devices": [r["device"] for r in ranks], "batch": TRAIN_MESH_B,
+            "ms_per_step_slowest_rank": max(r["ms"] for r in rs),
+            "ms_per_rank": [r["ms"] for r in rs],
+            "note": "gloo-staged ranks sharing one card: these times measure host staging, "
+                    "and no speed claim rests on them",
+            "param_bytes": [r["param_bytes"] for r in rs], "single_card_param_bytes": whole_bytes,
+            "max_memory_allocated": [r["max_memory_allocated"] for r in rs],
+            "lr": TRAIN_CHECK_LR, "loss_single": want_loss, "loss_rel_diff": loss_rel,
+            "param_max_abs_diff": d_param, **update}))
+        if loss_rel > TRAIN_LOSS_RTOL or d_param > TRAIN_PARAM_ATOL or not _update_ok(update):
+            bad.append((name, loss_rel, d_param, update))
+    print(json.dumps({"phase": "train_mesh", "backend": backend, "spawn_s": spawn_s,
+                      "seconds": time.perf_counter() - t_phase, "k1_launches": k1}))
+    if bad:
+        raise AssertionError(f"train_mesh vs the single-card step: {bad}")
+    if min(k1) <= 0:
+        raise AssertionError(f"a training rank launched no crop kernel: {k1}")
+    return sum(k1)
+
+
 def int8_detector_path(device, frames):
     """--fast_detector: YoloDetector(int8=True, rect=True) on the seed-0
     init, calibrated explicitly on the first CHUNK frames; its int8 heads
@@ -1798,6 +2170,11 @@ def main() -> int:
                                    smpl, cfg)
     k1["launches"] += parallel_path(device, frames, main_bboxes, main_track_frames, variables,
                                     smpl, cfg)
+    k1["launches"] += data_prep(device, frames, tracks)
+    k1["launches"] += train_single(device, frames, main_bboxes, main_track_frames, variables,
+                                   smpl, cfg, smi)
+    k1["launches"] += train_mesh(device, frames, main_bboxes, main_track_frames, variables, cfg,
+                                 smi)
 
     k2_launches, yolo_sd = detector_path(device, frames)
     k2_launches += full_frame(device, frames, main_bboxes, yolo_sd, variables, smpl, cfg, False)

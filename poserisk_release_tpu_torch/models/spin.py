@@ -74,15 +74,19 @@ class HMR(ResNet50):
             module.to(dtype)
         return self
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        B = x.shape[0]
-        # NHWC -> NCHW as a view: the permuted tensor is channels-last in
-        # memory, which is the layout cuDNN prefers.
-        xf = self.features(x.permute(0, 3, 1, 2))
+    def head(self, xf: torch.Tensor):
+        """The IEF head on pooled features (B, 2048) f32: (rotmat, betas,
+        camera) after the model's n_iter refinement steps."""
+        B = xf.shape[0]
         return ief_head(
             lambda name, t: getattr(self, name)(t), xf,
             self.init_pose.expand(B, NPOSE), self.init_shape.expand(B, 10),
             self.init_cam.expand(B, 3), self.n_iter)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        # NHWC -> NCHW as a view: the permuted tensor is channels-last in
+        # memory, which is the layout cuDNN prefers.
+        return self.head(self.features(x.permute(0, 3, 1, 2)))
 
 
 def hmr_forward_quant(qbackbone: Dict, model: HMR, x: torch.Tensor,

@@ -8,8 +8,10 @@ corner math (vis_utils.py:278-294). Frames come from memory (no jpg re-read).
 
 ResultVideoWriter writes the video window by window (the streaming
 scorer's pass 2; render_result_video is its one-window case). Also the
---debug_frame 3D skeleton figure (vis_3d_pose, vis_utils.py parity). Own
-copy of the JAX package's renderer. cv2 and matplotlib are imported inside
+--debug_frame 3D skeleton figure (vis_3d_pose, vis_utils.py parity), the
+2-D keypoint overlays (vis_coco_skeleton, vis_keypoints,
+vis_keypoints_with_skeleton, vis_2d_pose) and the joint-cam video
+(render_joint_cam_video). Own copy of the JAX package's renderer. cv2 and matplotlib are imported inside
 the functions, so importing the module needs neither.
 """
 
@@ -204,3 +206,146 @@ def vis_3d_pose(kps_3d: np.ndarray, skeleton: Sequence, file_path: str, frame: i
     axis_equal_3d(ax)  # reference call order (vis_utils.py:230); no-op here
     fig.savefig(file_path)
     plt.close(fig=fig)
+
+
+# ---------------------------------------------------------------------------
+# 2-D keypoint overlays and the joint-cam video (the JAX renderer's extras).
+# ---------------------------------------------------------------------------
+COCO_PART_COLORS = (
+    # face x4, left arm x2, right leg x2, left leg x2, shoulder/hip links x4,
+    # center body x2, right arm x2 (vis_utils.py:28-62 palette, RGB 0-1)
+    (1.0, 0.6, 0.2), (1.0, 0.6, 0.2), (1.0, 0.6, 0.2), (1.0, 0.6, 0.2),
+    (0.4, 1.0, 0.4), (0.2, 1.0, 0.2),
+    (1.0, 0.4, 1.0), (1.0, 0.2, 1.0),
+    (1.0, 0.4, 0.4), (1.0, 0.2, 0.2),
+    (0.6, 1.0, 0.6), (0.6, 0.8, 1.0), (1.0, 0.6, 0.6), (1.0, 0.6, 1.0),
+    (1.0, 0.8, 0.6), (1.0, 0.7, 0.4),
+    (0.4, 0.7, 1.0), (0.2, 0.6, 1.0),
+)
+
+
+def vis_coco_skeleton(img_bgr: np.ndarray, kps_2xk: np.ndarray, skeleton,
+                      given_color=(0, 1, 0), alpha: float = 1.0) -> np.ndarray:
+    """Single-color skeleton overlay (vis_utils.py:27-91 behaviour: edges and
+    endpoint circles in the given color, alpha-blended). Quirk preserved:
+    the reference scales given_color WITHOUT the R/B swap it applies to its
+    palette (vis_utils.py:64-65), so a non-symmetric given_color draws with
+    its channels in RGB order on the BGR canvas -- exactly as upstream."""
+    import cv2
+
+    color = (given_color[0] * 255, given_color[1] * 255, given_color[2] * 255)
+    canvas = np.ascontiguousarray(img_bgr, np.uint8).copy()
+    for i1, i2 in skeleton:
+        p1 = (int(kps_2xk[0, i1]), int(kps_2xk[1, i1]))
+        p2 = (int(kps_2xk[0, i2]), int(kps_2xk[1, i2]))
+        cv2.line(canvas, p1, p2, color=color, thickness=2, lineType=cv2.LINE_AA)
+        cv2.circle(canvas, p1, radius=2, color=color, thickness=3, lineType=cv2.LINE_AA)
+        cv2.circle(canvas, p2, radius=2, color=color, thickness=3, lineType=cv2.LINE_AA)
+    return cv2.addWeighted(np.ascontiguousarray(img_bgr, np.uint8), 1.0 - alpha, canvas, alpha, 0)
+
+
+def vis_keypoints(img_bgr: np.ndarray, kps: np.ndarray, alpha: float = 1.0) -> np.ndarray:
+    """Rainbow keypoint dots (vis_utils.py:94-112 behaviour)."""
+    import cv2
+    import matplotlib
+
+    cmap = matplotlib.colormaps["rainbow"]
+    colors = [cmap(i) for i in np.linspace(0, 1, len(kps) + 2)]
+    colors = [(c[2] * 255, c[1] * 255, c[0] * 255) for c in colors]
+    canvas = np.ascontiguousarray(img_bgr, dtype=np.uint8).copy()
+    for i, point in enumerate(kps):
+        cv2.circle(canvas, (int(point[0]), int(point[1])), radius=3,
+                   color=colors[i], thickness=-1, lineType=cv2.LINE_AA)
+    return cv2.addWeighted(np.ascontiguousarray(img_bgr, np.uint8), 1.0 - alpha, canvas, alpha, 0)
+
+
+def vis_keypoints_with_skeleton(
+    img_bgr: np.ndarray, kps_3xk: np.ndarray, skeleton: Sequence,
+    kp_thresh: float = 0.4, alpha: float = 1.0,
+) -> np.ndarray:
+    """Skeleton edges + joints, colored per edge (vis_utils.py:115-151)."""
+    import cv2
+    import matplotlib
+
+    cmap = matplotlib.colormaps["rainbow"]
+    colors = [cmap(i) for i in np.linspace(0, 1, len(skeleton))]
+    colors = [(c[2] * 255, c[1] * 255, c[0] * 255) for c in colors]
+    canvas = np.ascontiguousarray(img_bgr, np.uint8).copy()
+    for l, (i1, i2) in enumerate(skeleton):
+        p1 = (int(kps_3xk[0, i1]), int(kps_3xk[1, i1]))
+        p2 = (int(kps_3xk[0, i2]), int(kps_3xk[1, i2]))
+        if kps_3xk[2, i1] > kp_thresh and kps_3xk[2, i2] > kp_thresh:
+            cv2.line(canvas, p1, p2, color=colors[l], thickness=2, lineType=cv2.LINE_AA)
+        if kps_3xk[2, i1] > kp_thresh:
+            cv2.circle(canvas, p1, radius=3, color=colors[l], thickness=-1, lineType=cv2.LINE_AA)
+        if kps_3xk[2, i2] > kp_thresh:
+            cv2.circle(canvas, p2, radius=3, color=colors[l], thickness=-1, lineType=cv2.LINE_AA)
+    return cv2.addWeighted(np.ascontiguousarray(img_bgr, np.uint8), 1.0 - alpha, canvas, alpha, 0)
+
+
+def vis_2d_pose(pred_xy: np.ndarray, img_bgr, skeleton: Sequence,
+                out_dir: str, prefix: str = "vis2dpose") -> str:
+    """2-D pose overlay jpg, parity with the reference's vis_2d_pose
+    (reference lib/utils/vis_utils.py:154-170): (K, 2+) predictions
+    with confidence forced to 1, drawn with the per-edge rainbow skeleton,
+    written '{prefix}_{isoformat}_2d_joint.jpg'. The reference writes into
+    its global cfg.vis_dir; here the directory is an argument. Returns the
+    written path."""
+    import datetime
+    import os
+    import os.path as osp
+
+    import cv2
+
+    if isinstance(img_bgr, str):
+        img_bgr = cv2.imread(img_bgr, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+    canvas = np.ascontiguousarray(img_bgr, np.uint8).copy()
+    kps = np.ones((3, len(pred_xy)))
+    kps[0, :], kps[1, :] = pred_xy[:, 0], pred_xy[:, 1]
+    canvas = vis_keypoints_with_skeleton(canvas, kps, skeleton)
+    now = datetime.datetime.now()
+    file_name = f"{prefix}_{now.isoformat()[:-7]}_2d_joint.jpg"
+    os.makedirs(out_dir, exist_ok=True)
+    path = osp.join(out_dir, file_name)
+    cv2.imwrite(path, canvas)
+    return path
+
+
+def render_joint_cam_video(
+    joint_cams: np.ndarray,  # (T, J, 3) mm
+    track_frames: np.ndarray,
+    skeleton: Sequence,
+    output_path: str,
+    fps: float = 20.0,
+    even_snap: bool = True,
+) -> str:
+    """Working rebuild of the reference's visualize_joint_cam debug method
+    (base.py:399-420, which crashes on an undefined variable): renders the
+    per-frame 3D skeleton figures and stitches estimation_result.mp4,
+    preserving the j//2*2 even-index snap."""
+    import os
+    import tempfile
+
+    import cv2
+
+    tmp_dir = tempfile.mkdtemp(prefix="joint_cam_")
+    paths = []
+    for j, frame_id in enumerate(track_frames):
+        idx = (j // 2 * 2) if even_snap else j
+        path = osp.join(tmp_dir, f"joint_cam_{int(frame_id)}.png")
+        vis_3d_pose(joint_cams[min(idx, len(joint_cams) - 1)], skeleton, path,
+                    frame=int(frame_id))
+        paths.append(path)
+
+    first = cv2.imread(paths[0])
+    h, w = first.shape[:2]
+    out_file = osp.join(output_path, "estimation_result.mp4")
+    writer = cv2.VideoWriter(out_file, 0x7634706D, fps, (w, h))
+    for p in paths:
+        canvas = cv2.resize(cv2.imread(p), (w, h), interpolation=cv2.INTER_AREA)
+        writer.write(np.uint8(canvas))
+    writer.release()
+    for p in paths:
+        os.remove(p)
+    os.rmdir(tmp_dir)
+    return out_file

@@ -23,6 +23,20 @@ sharded activation, and once more after the global average pool. fc1's
 shard output feeds fc2's shard, and one all_reduce sums fc2's partial
 products.
 
+The forward is differentiable (train/step.py trains through it). JAX's
+partitioner derives the backward of each collective; here each is a
+torch.autograd.Function whose backward fits what consumes its output:
+  * the channel gather before a conv: the convs that read the gathered
+    tensor each hold an output-channel shard, so a rank's gradient of it is
+    partial -- the backward sums it over the model axis and keeps this
+    rank's channels;
+  * the pooled features' gather: the IEF head that reads it is replicated,
+    so its gradient is already whole -- the backward keeps this rank's
+    slice (a sum would count the head once per rank);
+  * fc1's input (Megatron's f): identity forward; fc1 holds an output shard,
+    so the input's gradient is partial and the backward all-reduces it;
+  * fc2's all_reduce (Megatron's g): identity backward.
+
 The spatial axis (crop rows over ``spatial``) is not ported: ROADMAP
 Queue 1 item 15b.
 """
@@ -129,6 +143,23 @@ def tp_shard_state_dict(state_dict: Dict[str, torch.Tensor], size: int,
     return out
 
 
+def tp_gather_state_dict(shard: Dict[str, torch.Tensor], size: int,
+                         group) -> Dict[str, torch.Tensor]:
+    """The inverse of tp_shard_state_dict on every rank of the model axis
+    (a collective: every rank calls it): each sharded entry all-gathered
+    along tp_shard_dim in rank order, the replicated ones as they are."""
+    _check_model_size(size)
+    out = {}
+    for key, value in shard.items():
+        dim = tp_shard_dim(key, value.ndim)
+        value = value.detach()
+        if dim is not None:
+            rows = collectives.all_gather_rows(value.movedim(dim, 0).contiguous(), group)
+            value = rows.movedim(0, dim)
+        out[key] = value.contiguous()
+    return out
+
+
 def _gather_channels(x: torch.Tensor, group) -> torch.Tensor:
     """(B, C/T, H, W) channel shards -> (B, C, H, W), channels in rank
     order, channels_last in memory like the convs' own outputs."""
@@ -136,6 +167,62 @@ def _gather_channels(x: torch.Tensor, group) -> torch.Tensor:
     T, B, H, W, c = shards.shape
     full = shards.permute(1, 2, 3, 0, 4).reshape(B, H, W, T * c)
     return full.permute(0, 3, 1, 2)
+
+
+class _GatherChannels(torch.autograd.Function):
+    """_gather_channels; backward: sum over the model axis, this rank's
+    channels (the gathered tensor feeds output-channel-sharded convs)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, index):
+        ctx.group, ctx.size, ctx.index = group, size, index
+        return _gather_channels(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = collectives.all_reduce_sum(grad, ctx.group)
+        return whole.chunk(ctx.size, dim=1)[ctx.index], None, None, None
+
+
+class _GatherFeatures(torch.autograd.Function):
+    """(B, C/T) pooled-feature shards -> (B, C); backward: this rank's
+    slice of the (already whole) gradient of the replicated head's input."""
+
+    @staticmethod
+    def forward(ctx, xf, group, size, index):
+        ctx.size, ctx.index = size, index
+        return collectives.all_gather_rows(xf.t().contiguous(), group).t()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.chunk(ctx.size, dim=1)[ctx.index], None, None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f before a column-parallel layer: identity; backward: the
+    all-reduce of the partial input gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return collectives.all_reduce_sum(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g after a row-parallel layer: the all-reduce of the
+    partial products; backward: identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return collectives.all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 class TensorParallelHMR:
@@ -151,6 +238,7 @@ class TensorParallelHMR:
     def __init__(self, state_dict: Dict[str, torch.Tensor], group, size: int, index: int,
                  n_iter: int, device, backbone_dtype: torch.dtype = torch.float32):
         self.group, self.n_iter = group, int(n_iter)
+        self.size, self.index = int(size), int(index)
         shard = tp_shard_state_dict(state_dict, size, index)
         self.tensors: Dict[str, torch.Tensor] = {}
         for key, value in shard.items():
@@ -165,6 +253,9 @@ class TensorParallelHMR:
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.tensors.values())
 
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherChannels.apply(x, self.group, self.size, self.index)
+
     def _conv_bn(self, x, conv: str, bn: str, stride: int = 1, padding: int = 0):
         t = self.tensors
         y = F.conv2d(x, t[conv + ".weight"], stride=stride, padding=padding)
@@ -174,15 +265,15 @@ class TensorParallelHMR:
     def _block(self, x_shard, L: int, i: int):
         p = f"layer{L}.{i}."
         stride = 2 if (L > 1 and i == 0) else 1
-        x = _gather_channels(x_shard, self.group)
+        x = self._gather(x_shard)
         if i == 0:
             identity = self._conv_bn(x, p + "downsample.0", p + "downsample.1", stride)
         else:
             identity = x_shard
         out = F.relu(self._conv_bn(x, p + "conv1", p + "bn1"))
-        out = _gather_channels(out, self.group)
+        out = self._gather(out)
         out = F.relu(self._conv_bn(out, p + "conv2", p + "bn2", stride, 1))
-        out = _gather_channels(out, self.group)
+        out = self._gather(out)
         out = self._conv_bn(out, p + "conv3", p + "bn3")
         return F.relu(out + identity)
 
@@ -194,18 +285,24 @@ class TensorParallelHMR:
         for L, i in _BLOCKS:
             x = self._block(x, L, i)
         xf = x.float().mean(dim=(2, 3))
-        return collectives.all_gather_rows(xf.t().contiguous(), self.group).t()
+        return _GatherFeatures.apply(xf, self.group, self.size, self.index)
 
     def _dense(self, name: str, t: torch.Tensor) -> torch.Tensor:
         w = self.tensors[name + ".weight"]
         if name == "fc2":  # row-parallel: partial products, one all_reduce
-            return collectives.all_reduce_sum(t @ w.t(), self.group) + self.tensors["fc2.bias"]
+            return _ReduceFromModel.apply(t @ w.t(), self.group) + self.tensors["fc2.bias"]
+        if name == "fc1":  # column-parallel on a replicated input
+            t = _CopyToModel.apply(t, self.group)
         return F.linear(t, w, self.tensors[name + ".bias"])
 
-    def __call__(self, crops_nhwc: torch.Tensor):
-        B = crops_nhwc.shape[0]
-        xf = self.features(crops_nhwc.permute(0, 3, 1, 2))
+    def head(self, xf: torch.Tensor):
+        """The IEF head (replicated heads, tp fc1/fc2) on whole pooled
+        features: (rotmat, betas, camera), whole on every rank."""
+        B = xf.shape[0]
         t = self.tensors
         return ief_head(self._dense, xf, t["init_pose"].expand(B, NPOSE),
                         t["init_shape"].expand(B, 10), t["init_cam"].expand(B, 3), self.n_iter)
+
+    def __call__(self, crops_nhwc: torch.Tensor):
+        return self.head(self.features(crops_nhwc.permute(0, 3, 1, 2)))
 

@@ -43,7 +43,9 @@ def test_importing_every_module_loads_no_jax():
                 "ops.qconv", "ops.yolo_stage", "models.resnet_int8", "tools.exp_fused_stage",
                 "tools.exp_window_crop", "streaming", "serving", "parallel", "parallel.mesh",
                 "parallel.distributed", "parallel.collectives", "parallel.spmd",
-                "parallel.pipeline", "parallel.expert"):
+                "parallel.pipeline", "parallel.expert", "train", "train.losses", "train.optim",
+                "train.step", "train.datasets", "train.plots", "io.images", "io.keypoints",
+                "ops.sampling", "utils.profiling", "tools.data_preprocessing"):
         assert f"poserisk_release_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
