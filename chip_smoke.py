@@ -43,12 +43,17 @@ counter set to 0 just before it and read just after:
   int8 backbone (the JAX bench's production configuration), through K2,
   held against the unfused step;
 * the mesh layouts (parallel_path): dp 2 x tp 2, dp 2 x pp 2 (2
-  microbatches), ep 4 and dp 4, each driving PoseEstimator.run_from_frames
-  over one 64-frame chunk of tracked frames at full width on 4 ranks
-  (spawned processes; NCCL with one card per rank where there are enough
-  cards, else ranks sharing cuda:0 over gloo, staged through the host);
-  scores equal the single-card step's, Euler and joints within the CPU
-  tests' limits, and every data rank on stage 0 launches K1;
+  microbatches), ep 4, dp 4, sp 4, dp 2 x sp 2 (also fast and int8) and
+  tp 2 x sp 2, each driving PoseEstimator.run_from_frames over one
+  64-frame chunk of tracked frames at full width on 4 ranks (spawned
+  processes; NCCL with one card per rank where there are enough cards,
+  else ranks sharing cuda:0 over gloo, staged through the host); scores
+  equal the single-card step's, Euler and joints within the CPU tests'
+  limits, each rank's halo-exchange bytes equal the count from the
+  geometry, sp 4's peak memory a rank stays below 0.6 of ep 4's, and every
+  data rank on stage 0 launches K1; then, under dp 2 x sp 2 on the same
+  ranks, the streaming scorer over 128 frames and one server request,
+  each equal to the single card's;
 * the data preparation (data_prep): tools/data_preprocessing.person_chunks
   on the tracked frames and io/images.get_single_image_crop, both through
   K1, equal to the plain crop exactly (the chunks' uint8 BGR images, and
@@ -1386,17 +1391,80 @@ PARALLEL_LAYOUTS = (
     ("dp2_pp2", {"num_devices": 2, "stage": 2, "stage_microbatches": 2}, 1e-3),
     ("ep4", {"num_devices": 1, "expert": 4}, 1e-3),
     ("dp4", {"num_devices": 4}, 1e-3),
+    ("sp4", {"num_devices": 1, "spatial": 4}, 5e-3),
+    ("dp2_sp2", {"num_devices": 2, "spatial": 2}, 5e-3),
+    ("tp2_sp2", {"num_devices": 1, "model": 2, "spatial": 2}, 5e-3),
 )
-PARALLEL_WORLD, PARALLEL_TIMEOUT_S = 4, 240
+# name, layout, estimator options: held against the single card in the same
+# configuration (the int8 one given the ranks' quantized backbone), within
+# the card-vs-CPU class of main_path; a bf16 run within twice the single
+# card's own bf16-vs-f32 gap, if that is larger: cuDNN picks other bf16
+# algorithms for a row window than for the whole map, and two bf16 runs lie
+# as far apart as bf16 lies from f32 (JAX's bf16 class, tests/test_bf16_path.py,
+# allows 0.15 on a rotation-matrix element).
+PARALLEL_VARIANTS = (("dp2_sp2_fast", "dp2_sp2", {"fast": True}),
+                     ("dp2_sp2_int8", "dp2_sp2", {"spin_int8": True}))
+VARIANT_TOL = 0.05  # deg and mm
+SP_MEMORY_SHARE = 0.6  # sp4's largest rank peak against ep4's, same frames
+MESH_LAYOUT = "dp2_sp2"  # the streaming scorer's and the server's mesh
+PARALLEL_WORLD, PARALLEL_TIMEOUT_S = 4, 420
 PORT_VS_JAX = 1e-2  # deg and mm, tests/test_torch_pose.py
 
 
+def halo_bytes_expected(hw: int, parallel: dict, frames: int, elem: int = 4) -> list:
+    """The bytes each rank of a layout receives in halo exchanges over one
+    run of `frames` frames (split over the data axis) of hw x hw crops,
+    counted from the ResNet-50's geometry and the partition rule alone:
+    rank r of S owns rows [min(r c, H), min((r + 1) c, H)), c = ceil(H / S),
+    of every activation; a conv or pool whose output rows [o0, o1) read
+    the input rows [o0 s - p, (o1 - 1) s - p + k) receives those of them
+    inside the input that it does not own. The stem reads the whole crops
+    (no exchange); under tp the exchanged activations are channel shards.
+    Ranks in mesh order (data, stage, expert, model, spatial; spatial
+    fastest)."""
+    S = parallel.get("spatial", 1)
+    T = parallel.get("model", 1)
+    D = parallel.get("num_devices", 1)
+    B = frames // D
+
+    def missing(H, k, s, p, r):
+        ho = (H + 2 * p - k) // s + 1
+        c, co = -(-H // S), -(-ho // S)
+        o0, o1 = min(r * co, ho), min((r + 1) * co, ho)
+        if o1 <= o0:
+            return 0
+        need = set(range(max(o0 * s - p, 0), min((o1 - 1) * s - p + k, H)))
+        return len(need - set(range(min(r * c, H), min((r + 1) * c, H))))
+
+    # (input rows = columns, channels, k, s, p) of every exchange
+    h = (hw + 6 - 7) // 2 + 1
+    layers = [(h, 64, 3, 2, 1)]  # the max-pool on the stem's output
+    h, cin = (h + 2 - 3) // 2 + 1, 64
+    for L, (n_blocks, planes) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512)), start=1):
+        for i in range(n_blocks):
+            s = 2 if (L > 1 and i == 0) else 1
+            if i == 0:
+                layers.append((h, cin, 1, s, 0))  # downsample
+            layers.append((h, cin, 1, 1, 0))  # conv1
+            layers.append((h, planes, 3, s, 1))  # conv2
+            h2 = (h + 2 - 3) // s + 1
+            layers.append((h2, planes, 1, 1, 0))  # conv3
+            h, cin = h2, planes * 4
+    per_spatial = [sum(missing(H, k, s, p, r) * H * (C // T) * B * elem
+                       for H, C, k, s, p in layers) for r in range(S)]
+    world = D * T * S * parallel.get("stage", 1) * parallel.get("expert", 1)
+    return [per_spatial[rank % S] for rank in range(world)]
+
+
 def parallel_rank(rank: int, root: str, cfg, on_cpu: bool) -> None:
-    """One rank of parallel_path: every layout in turn on the same 4-rank
-    group, each a fresh PoseEstimator (its own DeviceMesh) on the smoke's
-    cfg over the shared 64-frame chunk; a warm-up run, then the driven run with the launch
-    counts set to 0 just before it and read just after. Writes its numbers
-    to root/rank{rank}.pt. on_cpu: the CPU rehearsal (gloo on the CPU)."""
+    """One rank of parallel_path: every layout (then every variant) in
+    turn on the same 4-rank group, each a fresh PoseEstimator (its own
+    DeviceMesh) on the smoke's cfg over the shared 64-frame chunk; a
+    warm-up run, then the driven run with the launch and halo-byte counts
+    set to 0 just before it and read just after. Then, under MESH_LAYOUT,
+    the streaming scorer over STREAM_SHORT synthetic frames and one
+    request to the server. Writes its numbers to root/rank{rank}.pt.
+    on_cpu: the CPU rehearsal (gloo on the CPU)."""
     import torch.distributed as dist
 
     from poserisk_release_tpu_torch.body.smpl import SMPLFamily
@@ -1414,22 +1482,34 @@ def parallel_rank(rank: int, root: str, cfg, on_cpu: bool) -> None:
     frames, boxes = chunk["frames"], chunk["boxes"]
     ids = np.arange(len(frames))
     smpl = SMPLFamily(cfg.SPIN.smpl_model_dir)
-    out = {}
-    for name, parallel, _tol in PARALLEL_LAYOUTS:
-        n_data = parallel["num_devices"]
-        layout_cfg = cfg.replace(PARALLEL={"frames_per_step": len(frames) // n_data, **parallel})
-        est = PoseEstimator(layout_cfg, smpl, variables=variables, device=device)
-        est.run_from_frames(frames, ids, boxes)  # warm-up
+    layouts = {name: parallel for name, parallel, _tol in PARALLEL_LAYOUTS}
+
+    def layout_cfg(parallel):
+        return cfg.replace(PARALLEL={"frames_per_step": len(frames) // parallel["num_devices"],
+                                     **parallel})
+
+    def start_count():
         sync(device)
         reset_launch_counts()
+        pmesh.RowShards.received_bytes = 0
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         dist.barrier()
+
+    out = {}
+    runs = [(name, name, {}) for name in layouts] + list(PARALLEL_VARIANTS)
+    for name, layout, options in runs:
+        est = PoseEstimator(layout_cfg(layouts[layout]), smpl, variables=variables,
+                            device=device, **options)
+        est.run_from_frames(frames, ids, boxes)  # warm-up (int8: calibrates)
+        start_count()
         t0 = time.perf_counter()
         result = est.run_from_frames(frames, ids, boxes)
         ms = (time.perf_counter() - t0) * 1e3
         out[name] = {
             "result": result, "ms": ms, "k1": crop_batch_cuda.launches,
+            "halo_bytes": pmesh.RowShards.received_bytes,
+            "quant_params": est.quant_params if rank == 0 else None,
             "param_bytes": est.param_bytes,
             "max_memory_allocated": torch.cuda.max_memory_allocated(device) if cuda else None,
             "transport": transport(), "device": str(device),
@@ -1439,6 +1519,36 @@ def parallel_rank(rank: int, root: str, cfg, on_cpu: bool) -> None:
         del est
         if cuda:
             torch.cuda.empty_cache()
+
+    from poserisk_release_tpu_torch import streaming
+    from poserisk_release_tpu_torch.pipeline import load_add_info
+    from poserisk_release_tpu_torch.serving import PoseScoringServer
+
+    mesh_cfg = layout_cfg(layouts[MESH_LAYOUT])
+    scorer = streaming.StreamingScorer(cfg=mesh_cfg, window=CHUNK, spin_variables=variables,
+                                       device=device)
+    streaming._window_stream = SyntheticStream(STREAM_SHORT)
+    start_count()
+    t0 = time.perf_counter()
+    res = scorer("synthetic.mp4", load_add_info(cfg, ""))
+    out["streaming_mesh"] = {"frames": res.frames, "reba": res.reba_scores,
+                             "rula": res.rula_scores, "k1": crop_batch_cuda.launches,
+                             "halo_bytes": pmesh.RowShards.received_bytes,
+                             "seconds": time.perf_counter() - t0}
+    del scorer
+    # Counted from before the server exists: once built, the other ranks'
+    # worker loops answer rank 0's broadcasts on threads of their own, and
+    # a barrier here would cross them. Unwarmed, the one request captures
+    # its bucket's graph on every rank and replays it.
+    start_count()
+    with PoseScoringServer(cfg=mesh_cfg, batch_sizes=(1,), frame_hw=FRAME_HW, warm=False,
+                           spin_variables=variables, device=device) as srv:
+        got = srv.score(frames[0], boxes[0], timeout=120) if rank == 0 else None
+    ladder, replays = srv.batch_sizes, srv.graph_replays  # closed: every rank's batch ran
+    out["serving_mesh"] = {"result": None if got is None else (got.reba, got.rula,
+                                                                got.euler_deg, got.joint_cam_mm),
+                           "ladder": ladder, "graph_replays": replays,
+                           "k1": crop_batch_cuda.launches}
     torch.save(out, os.path.join(root, f"rank{rank}.pt"))
 
 
@@ -1451,20 +1561,31 @@ def parallel_path(device, frames, bboxes, track_frames, variables, smpl, cfg) ->
     cards (cuda:0 on one card), their collectives staged through the host;
     gloo-staged times measure that staging, not parallel speed. Holds every
     layout against this process's single-card step (scores exactly equal,
-    Euler and joints within the CPU tests' limits) and requires every data
-    rank on stage 0 to have launched K1. Returns the ranks' K1 launches."""
+    Euler and joints within the CPU tests' limits), the variants
+    (dp 2 x sp 2 fast and int8) against the single card in their
+    configuration, each layout's halo bytes against halo_bytes_expected,
+    sp4's largest rank peak against SP_MEMORY_SHARE of ep4's, and, under
+    MESH_LAYOUT, the streaming scorer over STREAM_SHORT frames and one
+    server request against the single card's. Requires every data rank on
+    stage 0 to have launched K1 in every run. Returns the ranks' K1
+    launches."""
+    from poserisk_release_tpu_torch import streaming
     from poserisk_release_tpu_torch.parallel.distributed import run_ranks
     from poserisk_release_tpu_torch.pipeline import PoseEstimator, load_add_info
     from poserisk_release_tpu_torch.scoring.reba import REBAScorer
     from poserisk_release_tpu_torch.scoring.rula import RULAScorer
+    from poserisk_release_tpu_torch.serving import PoseScoringServer
 
     t_phase = time.perf_counter()
     ids = track_frames[:CHUNK]
     chunk_frames = np.ascontiguousarray(frames[ids])
     chunk_boxes = np.asarray(bboxes[:CHUNK], np.float32)
-    ref = PoseEstimator(cfg, smpl, variables=variables, device=device).run_from_frames(
-        chunk_frames, np.arange(CHUNK), chunk_boxes, chunk=CHUNK)
     info = load_add_info(cfg, "")
+
+    def single(**options):
+        return PoseEstimator(cfg, smpl, variables=variables, device=device, **options)
+
+    ref = single().run_from_frames(chunk_frames, np.arange(CHUNK), chunk_boxes, chunk=CHUNK)
 
     def scores(euler):
         return [[r["score"] for r in scorer(euler, None, info)]
@@ -1482,40 +1603,120 @@ def parallel_path(device, frames, bboxes, track_frames, variables, smpl, cfg) ->
         spawn_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
                  for r in range(PARALLEL_WORLD)]
-    want = scores(ref[0])
-    silent = []
-    for name, _parallel, tol in PARALLEL_LAYOUTS:
+    layouts = {name: (parallel, tol) for name, parallel, tol in PARALLEL_LAYOUTS}
+    checks = [(name, name, {}, ref, (PORT_VS_JAX + tol,) * 2)
+              for name, (_p, tol) in layouts.items()]
+    gaps = {}
+    for name, layout, options in PARALLEL_VARIANTS:
+        est = single(**options)
+        if options.get("spin_int8"):
+            est.load_quant_backbone(ranks[0][name]["quant_params"])
+        want = est.run_from_frames(chunk_frames, np.arange(CHUNK), chunk_boxes, chunk=CHUNK)
+        limit = (VARIANT_TOL, VARIANT_TOL)  # deg, mm
+        if options.get("fast"):  # the single card's own bf16-vs-f32 gap
+            d = np.abs(want[0] - ref[0])
+            gaps[name] = (float(np.minimum(d, 360.0 - d).max()),
+                          float(np.abs(want[1] - ref[1]).max()))
+            limit = tuple(max(VARIANT_TOL, 2 * g) for g in gaps[name])
+        checks.append((name, layout, options, want, limit))
+        del est
+    silent, peaks = [], {}
+    for name, layout, options, want, limit in checks:
         rs = [r[name] for r in ranks]
         euler, joints, _aa = rs[0]["result"]
         for r in rs[1:]:
             for a, b in zip(rs[0]["result"], r["result"]):
                 if not np.array_equal(a, b):
                     raise AssertionError(f"{name}: the ranks' gathered chunks differ")
-        d_e = np.abs(euler - ref[0])
+        d_e = np.abs(euler - want[0])
         d_e = float(np.minimum(d_e, 360.0 - d_e).max())
-        d_j = float(np.abs(joints - ref[1]).max())
-        same = scores(euler) == want
+        d_j = float(np.abs(joints - want[1]).max())
+        same = scores(euler) == scores(want[0])
         k1 = [r["k1"] for r in rs]
+        halo = [r["halo_bytes"] for r in rs]
+        halo_want = halo_bytes_expected(int(cfg.MODEL.input_shape[0]), layouts[layout][0], CHUNK,
+                                        2 if options.get("fast") else 4)
+        peaks[name] = [r["max_memory_allocated"] for r in rs]
         first_stage = [r["coords"].get("stage", 0) == 0 for r in rs]
-        print(json.dumps({
+        line = {
             "phase": f"parallel_{name}", "transport": rs[0]["transport"],
             "world": rs[0]["shape"], "devices": [r["device"] for r in rs],
             "ms_per_chunk": max(r["ms"] for r in rs), "ms_per_rank": [r["ms"] for r in rs],
             "frames": CHUNK, "param_bytes": [r["param_bytes"] for r in rs],
             "single_card_param_bytes": sum(v.numel() * v.element_size()
                                            for v in variables.values()),
-            "max_memory_allocated": [r["max_memory_allocated"] for r in rs],
-            "k1_launches": k1, "euler_max_abs_diff_deg": d_e, "joint_max_abs_diff_mm": d_j,
-            "scores_equal": same}))
-        if not same or d_e >= PORT_VS_JAX + tol or d_j >= PORT_VS_JAX + tol:
+            "max_memory_allocated": peaks[name], "halo_bytes": halo,
+            "halo_bytes_expected": halo_want, "k1_launches": k1,
+            "euler_max_abs_diff_deg": d_e, "joint_max_abs_diff_mm": d_j,
+            "scores_equal": same}
+        if options:
+            line.update(options=options, limit=limit)
+        if name in gaps:
+            line["single_card_bf16_vs_f32_deg_mm"] = gaps[name]
+        print(json.dumps(line))
+        if not same or d_e >= limit[0] or d_j >= limit[1]:
             raise AssertionError(
                 f"{name} vs the single-card step: euler {d_e} deg, joints {d_j} mm, "
                 f"scores equal {same}")
-        if not on_cpu and any(r["tf32"] != (False, False) for r in rs):
+        if halo != halo_want:
+            raise AssertionError(f"{name}: halo bytes {halo}, the geometry's {halo_want}")
+        if not on_cpu and not options.get("fast") and any(
+                r["tf32"] != (False, False) for r in rs):
             raise AssertionError(f"{name}: a rank left TF32 on")
         if not all(n > 0 for n, first in zip(k1, first_stage) if first):
             silent.append((name, k1))
         launches += sum(k1)
+    if not on_cpu:
+        share = max(peaks["sp4"]) / max(peaks["ep4"])
+        print(json.dumps({"phase": "parallel_sp4_memory", "sp4_max_memory_allocated":
+                          peaks["sp4"], "ep4_max_memory_allocated": peaks["ep4"],
+                          "sp4_share_of_ep4": share, "limit": SP_MEMORY_SHARE}))
+        if share >= SP_MEMORY_SHARE:
+            raise AssertionError(f"sp4's peak is {share} of ep4's (limit {SP_MEMORY_SHARE})")
+
+    # The streaming scorer under MESH_LAYOUT against the single card's.
+    real_stream = streaming._window_stream
+    streaming._window_stream = SyntheticStream(STREAM_SHORT)
+    try:
+        res = streaming.StreamingScorer(cfg=cfg, window=CHUNK, spin_variables=variables,
+                                        device=device)("synthetic.mp4", info)
+    finally:
+        streaming._window_stream = real_stream
+    rs = [r["streaming_mesh"] for r in ranks]
+    k1 = [r["k1"] for r in rs]
+    same = all((r["frames"], r["reba"], r["rula"])
+               == (res.frames, res.reba_scores, res.rula_scores) for r in rs)
+    line = {"phase": "streaming_mesh", "layout": MESH_LAYOUT, "frames": STREAM_SHORT,
+            "scored": len(res.frames), "seconds": max(r["seconds"] for r in rs),
+            "halo_bytes": [r["halo_bytes"] for r in rs], "k1_launches": k1,
+            "equal_to_single_card": same}
+    print(json.dumps(line))
+    if not same:
+        raise AssertionError(f"streaming under {MESH_LAYOUT} differs from the single card")
+    if min(k1) <= 0:
+        silent.append(("streaming_mesh", k1))
+    launches += sum(k1)
+
+    # One request to the server under MESH_LAYOUT against the single card's.
+    with PoseScoringServer(cfg=cfg, batch_sizes=(1,), frame_hw=FRAME_HW, warm=False,
+                           spin_variables=variables, device=device) as srv:
+        want = srv.score(chunk_frames[0], chunk_boxes[0], timeout=120)
+    rs = [r["serving_mesh"] for r in ranks]
+    reba, rula, euler, joints = rs[0]["result"]
+    d_e = np.abs(euler - want.euler_deg)
+    d_e = float(np.minimum(d_e, 360.0 - d_e).max())
+    d_j = float(np.abs(joints - want.joint_cam_mm).max())
+    k1 = [r["k1"] for r in rs]
+    line = {"phase": "serving_mesh", "layout": MESH_LAYOUT, "ladder": rs[0]["ladder"],
+            "graph_replays": [r["graph_replays"] for r in rs], "k1_launches": k1,
+            "scores": (reba, rula), "single_card_scores": (want.reba, want.rula),
+            "euler_max_abs_diff_deg": d_e, "joint_max_abs_diff_mm": d_j}
+    print(json.dumps(line))
+    if (reba, rula) != (want.reba, want.rula) or d_e >= VARIANT_TOL or d_j >= VARIANT_TOL:
+        raise AssertionError(f"the server under {MESH_LAYOUT} differs from the single card")
+    if min(k1) <= 0:
+        silent.append(("serving_mesh", k1))
+    launches += sum(k1)
     print(json.dumps({"phase": "parallel_path", "backend": backend, "spawn_s": spawn_s,
                       "seconds": time.perf_counter() - t_phase, "k1_launches": launches}))
     if silent:

@@ -5,16 +5,16 @@
         [--visualize] [--debug] [--debug_joints "Neck,L_Hip"] [--debug_frame N] [--cpu] \
         [--fast] [--spin_int8] [--fast_detector] [--calibration frames.npy] \
         [--streaming [--streaming_window N]] \
-        [--num_devices N] [--tp N] [--pp N [--pp_microbatches M]] [--ep N]
+        [--num_devices N] [--tp N] [--pp N [--pp_microbatches M]] [--ep N] [--sp N]
 
 Flags and defaults mirror the JAX package's cli.py (and the reference's
 main/run.py:10-20). `--gpu N` selects CUDA device N; `--cpu` runs on the
-CPU. Flags of later slices of the port are parsed and rejected with an
-error naming their ROADMAP item, so no run silently ignores them.
+CPU.
 
 The mesh flags map onto cfg.PARALLEL as in the JAX CLI and run one process
-per rank (parallel/): the world is num_devices (0: every visible card, or
-one on the CPU, divided among the model axes) times tp * pp * ep ranks.
+per rank (parallel/), for the batch Predictor and --streaming alike: the
+world is num_devices (0: every visible card, or one on the CPU, divided
+among the model axes) times tp * pp * ep * sp ranks.
 Under a launcher (torchrun, or RANK and WORLD_SIZE in the environment) each
 rank joins the launcher's group; otherwise the CLI spawns the world itself
 (torch.multiprocessing). Ranks use NCCL, one card each, or gloo on the CPU
@@ -22,6 +22,7 @@ with --cpu. Only rank 0 writes the result files.
 
     torchrun --nproc_per_node 4 -m poserisk_release_tpu_torch.cli --tp 2 --input v.mp4
     python -m poserisk_release_tpu_torch.cli --cpu --num_devices 2 --pp 2 --input v.mp4
+    python -m poserisk_release_tpu_torch.cli --cpu --sp 2 --streaming --input v.mp4
 """
 
 from __future__ import annotations
@@ -37,13 +38,6 @@ from poserisk_release_tpu_torch.parallel.distributed import (
     rank_device,
     run_ranks,
 )
-
-# flag -> (default, ROADMAP item): accepted by the parser for compatibility
-# with the JAX package's CLI, refused when set. The mesh's other axes
-# (--num_devices, --tp, --pp, --ep) are in the port.
-LATER_SLICE_FLAGS = {
-    "sp": (1, "Queue 1 item 15b (the spatial axis)"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,8 +120,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ep", type=int, default=1, metavar="N",
                         help="expert parallelism: one gendered SMPL model per rank of an "
                              "N-wide 'expert' axis (PARALLEL.expert, >= 3)")
-    # Parsed so the JAX package's command lines give a clear error.
-    parser.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
+    parser.add_argument("--sp", type=int, default=1, metavar="N",
+                        help="spatial partitioning: split the crop rows of every SPIN "
+                             "activation over an N-wide 'spatial' axis, with halo "
+                             "exchanges (PARALLEL.spatial)")
     parser.add_argument("--streaming", action="store_true",
                         help="bounded-memory long-video mode: two-pass "
                              "reference-consistent target selection, peak "
@@ -282,8 +278,8 @@ def config_from_args(args):
             "calibration_frames": args.calibration_frames,
             "recalibrate_per_video": args.recalibrate_per_video,
         })
-    par_axes = {k: v for k, v in (("model", args.tp), ("stage", args.pp),
-                                  ("expert", args.ep)) if v != 1}
+    par_axes = {k: v for k, v in (("model", args.tp), ("spatial", args.sp),
+                                  ("stage", args.pp), ("expert", args.ep)) if v != 1}
     if args.pp != 1:
         par_axes["stage_microbatches"] = args.pp_microbatches
     if par_axes or args.num_devices:
@@ -317,17 +313,11 @@ def _world(args, cfg) -> tuple:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, (default, item) in LATER_SLICE_FLAGS.items():
-        if getattr(args, flag) != default:
-            parser.error(f"--{flag} is not in the PyTorch port yet (ROADMAP {item})")
     if args.no_visualize:
         args.visualize = False
 
     cfg = config_from_args(args)
     dp, world = _world(args, cfg)
-    if world > 1 and args.streaming:
-        parser.error("--streaming under a mesh is not in the PyTorch port yet "
-                     "(ROADMAP Queue 1 item 15b)")
     if world > 1:
         cfg = cfg.replace(PARALLEL={"num_devices": dp})
     backend = "gloo" if args.cpu else "nccl"

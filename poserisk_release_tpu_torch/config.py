@@ -144,11 +144,10 @@ class DetectorConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """Device layout. frames_per_step is the pose chunk per data rank. The
-    data, model (tp), stage (pp) and expert (ep) axes describe a mesh over
-    torch.distributed ranks (parallel/spmd.mesh_from_config), which the
-    estimator builds when any model axis is > 1 or num_devices > 1. The
-    spatial axis, and the streaming scorer under a mesh, are not in the
-    port yet (ROADMAP Queue 1 item 15b) and raise."""
+    data, model (tp), stage (pp), expert (ep) and spatial (sp: crop rows)
+    axes describe a mesh over torch.distributed ranks (parallel/spmd.
+    mesh_from_config), which the estimator builds when any model axis is
+    > 1 or num_devices > 1."""
 
     data_axis: str = "data"
     # Data-axis size. 0 => all devices left over after the model axes.

@@ -15,12 +15,113 @@ left them to XLA outside any Pallas kernel.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 BN_EPS = 1e-5
+LAYERS = (3, 4, 6, 3)
+PLANES = (64, 128, 256, 512)
+
+
+def conv_bn_names(name: str):
+    """(conv module, BN module) of a resnet50_walk conv name, under the
+    HMR's module names ("layer1.0.conv2" -> "layer1.0.bn2"; a downsample
+    is the Sequential's 0 and 1)."""
+    if name.endswith("downsample"):
+        return name + ".0", name + ".1"
+    head, _, last = name.rpartition("conv")
+    return name, head + "bn" + last
+
+
+def conv_height(height: int, k: int, s: int, p: int) -> int:
+    """Output rows of a conv or pool of kernel k, stride s, padding p."""
+    return (height + 2 * p - k) // s + 1
+
+
+def resnet50_walk(x: torch.Tensor, conv: Callable, rows=None,
+                  gather: Optional[Callable] = None, width: int = 1) -> torch.Tensor:
+    """THE ResNet-50 v1.5 walk over a conv function: NCHW crops (B, 3, S, S)
+    -> (B, C) pooled f32 features. The backbones that are not an nn.Module
+    run through it: the tensor-parallel shard (parallel/spmd), the folded /
+    int8 backbone (models/resnet_int8), and any of them, or the HMR's own
+    convs, with the crop rows split over ranks (parallel/spmd.SpatialHMR).
+
+    conv(name, x, stride, padding) -> the named conv's output with its BN
+    (or folded bias) applied and no activation; names are the HMR's conv
+    names ("conv1", "layer{L}.{i}.conv{1,2,3}", "layer{L}.{i}.downsample")
+    and padding a (rows, columns) pair.
+
+    gather(t): what a conv reads of a block-internal activation (the
+    tensor-parallel channel gather; identity by default). width: the
+    channel shards a conv's output comes in (the model axis), which sizes
+    an empty output.
+
+    rows: None, or this rank's rows of every activation (parallel/mesh.
+    RowShards): x is then the whole crops, each conv and the max-pool
+    read their input window (rows.take from the whole crops for the stem,
+    rows.exchange, the halo exchange, after it) with the row padding
+    already in it, and the pool is the sum over the rank's rows, summed
+    over the ranks (rows.mean). A rank that owns no output rows of a
+    layer computes none (an empty tensor of 0 rows)."""
+    gather = gather or (lambda t: t)
+
+    def run(name, t, height, k, s, p, cout, whole=False, read=None):
+        """(output, output height) of one conv on t (its rank's rows, or
+        the whole crops for the stem); read: gather(t), when known."""
+        if rows is None:
+            src = t if whole else (read if read is not None else gather(t))
+            return conv(name, src, s, (p, p)), conv_height(height, k, s, p)
+        win = rows.take(t, k, s, p) if whole else rows.exchange(t, height, k, s, p)
+        if win.shape[2] == 0:
+            wo = conv_height(t.shape[3], k, s, p)
+            return win.new_zeros((win.shape[0], cout // width, 0, wo)), \
+                conv_height(height, k, s, p)
+        if not whole:
+            win = read if (win is t and read is not None) else gather(win)
+        return conv(name, win, s, (0, p)), conv_height(height, k, s, p)
+
+    height = x.shape[2]
+    x, height = run("conv1", x, height, 7, 2, 3, 64, whole=True)
+    x = F.relu(x, inplace=True)
+    if rows is None:
+        x = F.max_pool2d(x, 3, 2, padding=1)
+    else:
+        # Zero rows past the crop's edge are exact for this max-pool: its
+        # input is post-ReLU (>= 0) and every window holds a real row.
+        win = rows.exchange(x, height, 3, 2, 1)
+        if win.shape[2]:
+            x = F.max_pool2d(win, 3, 2, padding=(0, 1))
+        else:
+            x = win.new_zeros((*win.shape[:2], 0, conv_height(x.shape[3], 3, 2, 1)))
+    def block(x, height, L, i):
+        """One bottleneck: (output, output height). Its temporaries die
+        with the call; the ReLUs act in place on the convs' own outputs,
+        as the module's nn.ReLU(inplace=True) does."""
+        p, planes = f"layer{L}.{i}.", PLANES[L - 1]
+        stride = 2 if (L > 1 and i == 0) else 1
+        # The block input's gather serves conv1 and, where it reads the
+        # same rows, the downsample.
+        read = gather(x) if (x.shape[2] or rows is None) else None
+        identity = x
+        if i == 0:
+            identity, _ = run(p + "downsample", x, height, 1, stride, 0, planes * 4, read=read)
+        out, _ = run(p + "conv1", x, height, 1, 1, 0, planes, read=read)
+        del read
+        out, out_height = run(p + "conv2", F.relu(out, inplace=True), height, 3, stride, 1,
+                              planes)
+        out, _ = run(p + "conv3", F.relu(out, inplace=True), out_height, 1, 1, 0, planes * 4)
+        return F.relu(out + identity, inplace=True), out_height
+
+    height = conv_height(height, 3, 2, 1)
+    for L, n_blocks in enumerate(LAYERS, start=1):
+        for i in range(n_blocks):
+            x, height = block(x, height, L, i)
+    if rows is None:
+        return x.float().mean(dim=(2, 3))
+    return rows.mean(x.float(), height * x.shape[3])
 
 
 class Bottleneck(nn.Module):
@@ -76,6 +177,13 @@ class ResNet50(nn.Module):
 
     def backbone_modules(self):
         return (self.conv1, self.bn1, self.layer1, self.layer2, self.layer3, self.layer4)
+
+    def conv_bn(self, name: str, x: torch.Tensor, stride: int, padding) -> torch.Tensor:
+        """One named conv and its BN on x at the given padding: the
+        resnet50_walk conv of this module's weights."""
+        conv_name, bn_name = conv_bn_names(name)
+        y = F.conv2d(x, self.get_submodule(conv_name).weight, None, stride, padding)
+        return self.get_submodule(bn_name)(y)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.conv1.weight.dtype)

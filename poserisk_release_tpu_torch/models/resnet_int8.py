@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from poserisk_release_tpu_torch.models.convert import fold_bn_kernel_bias
+from poserisk_release_tpu_torch.models.resnet import resnet50_walk
 from poserisk_release_tpu_torch.ops.qconv import (
     QConv2d,
     act_scale,
@@ -89,9 +90,10 @@ class _FloatConv:
         self.bias = torch.as_tensor(np.asarray(bias, np.float32), device=device)
         self.stride, self.pad = stride, pad
 
-    def __call__(self, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, compute_dtype: torch.dtype, pad=None) -> torch.Tensor:
+        """pad: the (rows, columns) padding in place of the layer's own."""
         y = F.conv2d(x.to(compute_dtype), self.weight.to(compute_dtype), stride=self.stride,
-                     padding=self.pad)
+                     padding=self.pad if pad is None else pad)
         return y + self.bias.to(compute_dtype)[None, :, None, None]
 
 
@@ -112,33 +114,23 @@ def prepare_resnet50(params: Dict, device) -> Dict[str, object]:
 
 
 def resnet50_forward(params: Dict, x: torch.Tensor, compute_dtype=torch.bfloat16,
-                     _record: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                     _record: Optional[Dict[str, torch.Tensor]] = None,
+                     rows=None) -> torch.Tensor:
     """(B, 224, 224, 3) [0, 1] NHWC -> (B, 2048) pooled features (f32). The
     same math as models/resnet.ResNet50 with inference BN folded into the
     convs; layers carrying 'qkernel' run int8. `params` is a folded or
-    quantized dict, or prepare_resnet50's output (reused across calls)."""
+    quantized dict, or prepare_resnet50's output (reused across calls).
+    rows: this rank's crop rows under the spatial axis (models/resnet.
+    resnet50_walk)."""
     layers = params if "__prepared__" in params else prepare_resnet50(params, x.device)
 
-    def conv(name, t, relu=True):
+    def conv(name, t, stride, padding):
+        key = name.replace(".", "_", 1) if name.startswith("layer") else name
         if _record is not None:
-            _record[name] = t.float()
-        out = layers[name](t, compute_dtype)
-        return torch.relu(out) if relu else out
+            _record[key] = t.float()
+        return layers[key](t, compute_dtype, padding)
 
-    x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view
-    x = conv("conv1", x)
-    x = F.max_pool2d(x, 3, 2, padding=1)
-    for stage, n_blocks, _planes in STAGES:
-        for block in range(n_blocks):
-            base = f"layer{stage}_{block}"
-            identity = x
-            out = conv(f"{base}.conv1", x)
-            out = conv(f"{base}.conv2", out)
-            out = conv(f"{base}.conv3", out, relu=False)
-            if block == 0:
-                identity = conv(f"{base}.downsample", x, relu=False)
-            x = torch.relu(out + identity)
-    return x.float().mean(dim=(2, 3))
+    return resnet50_walk(x.permute(0, 3, 1, 2), conv, rows=rows)  # NHWC -> NCHW view
 
 
 def calibrate_resnet50(folded: Dict, crops: torch.Tensor,

@@ -46,28 +46,36 @@ def leaky(y: torch.Tensor) -> torch.Tensor:
     return torch.where(y > 0, y, LEAKY_SLOPE * y)
 
 
-def _im2col(xq: torch.Tensor, kh: int, kw: int, stride: int, pad: int) -> torch.Tensor:
-    """(B, H, W, C) int8 -> (B*Ho*Wo, kh*kw*C) columns in (ky, kx, cin) order."""
+def _pads(pad):
+    """An int padding, or a (rows, columns) pair, as the pair."""
+    return (pad, pad) if isinstance(pad, int) else (int(pad[0]), int(pad[1]))
+
+
+def _im2col(xq: torch.Tensor, kh: int, kw: int, stride: int, pad) -> torch.Tensor:
+    """(B, H, W, C) int8 -> (B*Ho*Wo, kh*kw*C) columns in (ky, kx, cin)
+    order; pad: an int, or a (rows, columns) pair."""
     B, H, W, C = xq.shape
-    if kh == kw == 1 and stride == 1 and pad == 0:
+    ph, pw = _pads(pad)
+    if kh == kw == 1 and stride == 1 and ph == pw == 0:
         return xq.reshape(B * H * W, C)
-    xp = F.pad(xq, (0, 0, pad, pad, pad, pad)) if pad else xq
-    Ho = (H + 2 * pad - kh) // stride + 1
-    Wo = (W + 2 * pad - kw) // stride + 1
+    xp = F.pad(xq, (0, 0, pw, pw, ph, ph)) if (ph or pw) else xq
+    Ho = (H + 2 * ph - kh) // stride + 1
+    Wo = (W + 2 * pw - kw) // stride + 1
     taps = [xp[:, ky:ky + stride * (Ho - 1) + 1:stride, kx:kx + stride * (Wo - 1) + 1:stride]
             for ky in range(kh) for kx in range(kw)]
     return torch.stack(taps, dim=3).reshape(B * Ho * Wo, kh * kw * C)
 
 
 def int_conv_nhwc(xq: torch.Tensor, wmat: torch.Tensor, kh: int, kw: int, stride: int,
-                  pad: int) -> torch.Tensor:
+                  pad) -> torch.Tensor:
     """The s8 x s8 -> s32 product on CUDA: xq (B, H, W, C) int8, wmat
-    (N, K_pad) int8 with K_pad >= kh*kw*C a multiple of 8. Returns
-    (B, Ho, Wo, N) int32."""
+    (N, K_pad) int8 with K_pad >= kh*kw*C a multiple of 8; pad an int or
+    a (rows, columns) pair. Returns (B, Ho, Wo, N) int32."""
     B, H, W, _ = xq.shape
-    Ho = (H + 2 * pad - kh) // stride + 1
-    Wo = (W + 2 * pad - kw) // stride + 1
-    cols = _im2col(xq, kh, kw, stride, pad)
+    ph, pw = _pads(pad)
+    Ho = (H + 2 * ph - kh) // stride + 1
+    Wo = (W + 2 * pw - kw) // stride + 1
+    cols = _im2col(xq, kh, kw, stride, (ph, pw))
     M, K = cols.shape
     K_pad = wmat.shape[1]
     M_pad = max(M, 17)
@@ -77,11 +85,12 @@ def int_conv_nhwc(xq: torch.Tensor, wmat: torch.Tensor, kh: int, kw: int, stride
 
 
 def int_conv_plain(xq: torch.Tensor, qkernel_oihw: torch.Tensor, stride: int,
-                   pad: int) -> torch.Tensor:
+                   pad) -> torch.Tensor:
     """The plain version of the product on any device: float64 conv of the
-    int8 values, exact. xq (B, C, H, W) int8 -> (B, N, Ho, Wo) float64."""
+    int8 values, exact. xq (B, C, H, W) int8 -> (B, N, Ho, Wo) float64;
+    pad an int or a (rows, columns) pair."""
     return F.conv2d(xq.to(torch.float64), qkernel_oihw.to(torch.float64),
-                    stride=stride, padding=pad)
+                    stride=stride, padding=_pads(pad))
 
 
 def weight_matrix(qkernel_hwio: np.ndarray) -> np.ndarray:
@@ -128,16 +137,18 @@ class QConv2d(nn.Module):
                             "with .to(device) only")
         return out
 
-    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype, pad=None) -> torch.Tensor:
+        """pad: the (rows, columns) padding in place of the layer's own."""
+        pad = self.pad if pad is None else pad
         if x.dtype == torch.int8:
             xq = x  # q8 handoff: already scaled by this layer's in_scale
         else:
             xq = quantize(x.to(compute_dtype), self.inv_s.to(compute_dtype))
         if x.device.type == "cuda":
             acc = int_conv_nhwc(xq.permute(0, 2, 3, 1).contiguous(), self.wmat, self.kh,
-                                self.kw, self.stride, self.pad).permute(0, 3, 1, 2)
+                                self.kw, self.stride, pad).permute(0, 3, 1, 2)
         elif x.device.type == "cpu":
-            acc = int_conv_plain(xq, self.qkernel, self.stride, self.pad)
+            acc = int_conv_plain(xq, self.qkernel, self.stride, pad)
         else:
             raise ValueError(f"the int8 conv has no path for device {x.device}")
         y = acc.to(torch.float32) * self.dq[:, None, None] + self.bias[:, None, None]

@@ -11,13 +11,14 @@ Where a tensor lives and where the backend moves it can differ:
     not parallel speed.
 
 Movement-only collectives (gathers, broadcasts, point-to-point) carry
-bfloat16 as its int16 bits, so no backend has to know the type; sums run in
-the tensor's own type.
+bfloat16 as its int16 bits, so no backend has to know the type; int8 and
+the other types travel as themselves, and sums run in the tensor's own
+type.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -108,12 +109,28 @@ def send(x: torch.Tensor, dst: int, group) -> List:
 def recv(shape, dtype: torch.dtype, device, src: int, group) -> torch.Tensor:
     """Receive a tensor of the given shape and type from the src global
     rank (one batch_isend_irecv op), onto device."""
-    like = torch.empty(0, dtype=dtype, device=device)
-    wire_dtype = torch.int16 if dtype == torch.bfloat16 else dtype
-    buf = torch.empty(shape, dtype=wire_dtype, device=_wire_device(group, like))
-    for work in dist.batch_isend_irecv([dist.P2POp(dist.irecv, buf, src, group)]):
+    return exchange((), [(shape, src)], group, torch.empty(0, dtype=dtype, device=device))[0]
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[tuple, int]],
+             group, like: torch.Tensor) -> List[torch.Tensor]:
+    """Point-to-point sends and receives of one rank posted together (one
+    batch_isend_irecv) and finished before it returns: sends are (tensor,
+    dst global rank), recvs (shape, src global rank) of tensors of like's
+    type. Returns the received tensors in recvs order, on like's device.
+    A rank with neither posts nothing. Every send must meet its peer's
+    receive of the same shape, or both ranks wait for ever."""
+    if not (sends or recvs):
+        return []
+    device = _wire_device(group, like)
+    wire_dtype = torch.int16 if like.dtype == torch.bfloat16 else like.dtype
+    wires = [_to_wire(x, device) for x, _dst in sends]
+    bufs = [torch.empty(shape, dtype=wire_dtype, device=device) for shape, _src in recvs]
+    ops = ([dist.P2POp(dist.isend, y, dst, group) for y, (_x, dst) in zip(wires, sends)]
+           + [dist.P2POp(dist.irecv, buf, src, group) for buf, (_s, src) in zip(bufs, recvs)])
+    for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return _from_wire(buf, like)
+    return [_from_wire(buf, like) for buf in bufs]
 
 
 def wait(pending: Optional[List]) -> None:

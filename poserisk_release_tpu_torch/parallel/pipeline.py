@@ -28,16 +28,14 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from poserisk_release_tpu_torch.models.resnet import BN_EPS, Bottleneck
+from poserisk_release_tpu_torch.models.resnet import BN_EPS, LAYERS, PLANES, Bottleneck
 from poserisk_release_tpu_torch.models.spin import NPOSE, ief_head
 from poserisk_release_tpu_torch.parallel import collectives
 
 STAGE_AXIS = "stage"
-_LAYERS = (3, 4, 6, 3)
-_PLANES = (64, 128, 256, 512)
 # The 16 bottleneck blocks in execution order as (layer, block) pairs.
 _BLOCKS: Tuple[Tuple[int, int], ...] = tuple(
-    (L, i) for L, n in enumerate(_LAYERS, start=1) for i in range(n))
+    (L, i) for L, n in enumerate(LAYERS, start=1) for i in range(n))
 # The 4-stage layer-boundary split (stem+layer1 | layer2 | layer3 | layer4+head).
 LAYER_SPLIT: Tuple[int, ...] = (0, 3, 7, 13, 16)
 # flattened (rotmat 24*9, betas 10, cam 3) per sample
@@ -53,7 +51,7 @@ def _block_geometry(hw: int) -> List[Tuple[int, int, int]]:
         shapes.append((h, h, c))
         if L > 1 and i == 0:
             h //= 2
-        c = _PLANES[L - 1] * 4
+        c = PLANES[L - 1] * 4
     shapes.append((h, h, c))
     return shapes
 
@@ -156,8 +154,8 @@ class PipelineStage(nn.Module):
             self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         for b in range(b0, b1):
             L, i = _BLOCKS[b]
-            planes = _PLANES[L - 1]
-            inplanes = planes * 4 if i else (64 if L == 1 else _PLANES[L - 2] * 4)
+            planes = PLANES[L - 1]
+            inplanes = planes * 4 if i else (64 if L == 1 else PLANES[L - 2] * 4)
             stride = 2 if (L > 1 and i == 0) else 1
             downsample = None if i else nn.Sequential(
                 nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),

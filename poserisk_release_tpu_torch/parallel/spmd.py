@@ -1,4 +1,5 @@
-"""The config -> mesh rule, and Megatron tensor parallelism of the HMR.
+"""The config -> mesh rule, Megatron tensor parallelism of the HMR, and the
+HMR with its crop rows split over ``spatial``.
 
 Port of the JAX package's parallel/spmd.py. The JAX package annotates
 shardings and lets XLA's partitioner insert the collectives; here each
@@ -15,10 +16,10 @@ Tensor parallelism (``model`` axis), leaf for leaf the JAX rule
   * the decpose / decshape / deccam heads and init_* stay replicated.
 A model axis must divide 64, the stem's channel count.
 
-The forward (TensorParallelHMR): each conv computes its output-channel
-shard from the whole input, BN and ReLU act on the shard, max-pool and the
-residual add work shard-wise (the block's output shard lines up with its
-input's). The channels are all-gathered just before a conv that consumes a
+The forward (TensorParallelHMR, through models/resnet.resnet50_walk):
+each conv computes its output-channel shard from the whole input, BN and
+ReLU act on the shard, max-pool and the residual add work shard-wise (the
+block's output shard lines up with its input's). The channels are all-gathered just before a conv that consumes a
 sharded activation, and once more after the global average pool. fc1's
 shard output feeds fc2's shard, and one all_reduce sums fc2's partial
 products.
@@ -37,8 +38,14 @@ torch.autograd.Function whose backward fits what consumes its output:
     so the input's gradient is partial and the backward all-reduces it;
   * fc2's all_reduce (Megatron's g): identity backward.
 
-The spatial axis (crop rows over ``spatial``) is not ported: ROADMAP
-Queue 1 item 15b.
+The spatial axis (SpatialHMR): every activation's rows are split over
+``spatial`` (mesh.row_range) and each conv and the max-pool read their
+input window through a hand-written halo exchange (mesh.RowShards), where
+JAX pins the crops' height sharding and lets XLA insert the exchanges. It
+composes with the data axis (each data rank's frames, rows over its
+spatial line), with tp (shards exchanged, then channels gathered) and with
+the int8 backbone. It runs only in the estimator's own steps, as JAX
+constrains the crops only there: the server's step reads whole rows.
 """
 
 from __future__ import annotations
@@ -49,14 +56,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from poserisk_release_tpu_torch.models.resnet import BN_EPS
+from poserisk_release_tpu_torch.models.resnet import BN_EPS, conv_bn_names, resnet50_walk
 from poserisk_release_tpu_torch.models.spin import NPOSE, ief_head
 from poserisk_release_tpu_torch.parallel import collectives
 from poserisk_release_tpu_torch.parallel.expert import EXPERT_AXIS
-from poserisk_release_tpu_torch.parallel.pipeline import _BLOCKS, STAGE_AXIS
+from poserisk_release_tpu_torch.parallel.mesh import SPATIAL_AXIS
+from poserisk_release_tpu_torch.parallel.pipeline import STAGE_AXIS
 
 MODEL_AXIS = "model"
-SPATIAL_AXIS = "spatial"
 
 
 def model_axes_from_config(pcfg) -> Dict[str, int]:
@@ -256,35 +263,20 @@ class TensorParallelHMR:
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
         return _GatherChannels.apply(x, self.group, self.size, self.index)
 
-    def _conv_bn(self, x, conv: str, bn: str, stride: int = 1, padding: int = 0):
+    def _conv_bn(self, name: str, x, stride: int, padding):
+        """resnet50_walk's conv: this rank's output-channel shard of the
+        named conv and its BN."""
         t = self.tensors
+        conv, bn = conv_bn_names(name)
         y = F.conv2d(x, t[conv + ".weight"], stride=stride, padding=padding)
         return F.batch_norm(y, t[bn + ".running_mean"], t[bn + ".running_var"],
                             t[bn + ".weight"], t[bn + ".bias"], False, 0.0, BN_EPS)
 
-    def _block(self, x_shard, L: int, i: int):
-        p = f"layer{L}.{i}."
-        stride = 2 if (L > 1 and i == 0) else 1
-        x = self._gather(x_shard)
-        if i == 0:
-            identity = self._conv_bn(x, p + "downsample.0", p + "downsample.1", stride)
-        else:
-            identity = x_shard
-        out = F.relu(self._conv_bn(x, p + "conv1", p + "bn1"))
-        out = self._gather(out)
-        out = F.relu(self._conv_bn(out, p + "conv2", p + "bn2", stride, 1))
-        out = self._gather(out)
-        out = self._conv_bn(out, p + "conv3", p + "bn3")
-        return F.relu(out + identity)
-
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        """NCHW crops -> (B, 2048) pooled f32 features, whole."""
+    def features(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """NCHW crops -> (B, 2048) pooled f32 features, whole. rows: the
+        spatial axis's RowShards, when the crop rows are split too."""
         x = x.to(self.tensors["conv1.weight"].dtype)
-        x = F.relu(self._conv_bn(x, "conv1", "bn1", 2, 3))
-        x = F.max_pool2d(x, 3, 2, 1)
-        for L, i in _BLOCKS:
-            x = self._block(x, L, i)
-        xf = x.float().mean(dim=(2, 3))
+        xf = resnet50_walk(x, self._conv_bn, rows=rows, gather=self._gather, width=self.size)
         return _GatherFeatures.apply(xf, self.group, self.size, self.index)
 
     def _dense(self, name: str, t: torch.Tensor) -> torch.Tensor:
@@ -303,6 +295,40 @@ class TensorParallelHMR:
         return ief_head(self._dense, xf, t["init_pose"].expand(B, NPOSE),
                         t["init_shape"].expand(B, 10), t["init_cam"].expand(B, 3), self.n_iter)
 
+    def __call__(self, crops_nhwc: torch.Tensor, rows=None):
+        return self.head(self.features(crops_nhwc.permute(0, 3, 1, 2), rows))
+
+
+class SpatialHMR:
+    """The HMR forward with the crop rows split over ``spatial`` (the
+    estimator's spin_forward under sp): crops_nhwc (B, S, S, 3), the whole
+    crops of this data rank's frames on every spatial rank -> (rotmat,
+    betas, camera), whole and the same on every spatial rank.
+
+    The backbone is resnet50_walk over this rank's rows (mesh.RowShards):
+    the stem takes its window from the whole crops, every later conv and
+    the max-pool read theirs through a halo exchange, and the pooled
+    features are the row sums summed over the axis. The IEF head runs
+    replicated on the whole pooled features. One walk serves the three
+    backbones: `model` is the HMR module (its convs), a TensorParallelHMR
+    (tp x sp: its shards, the channel gathers composed with the row
+    exchanges), or the HMR module with `quant_backbone`, the prepared
+    folded / int8 backbone (models/resnet_int8), which computes in the
+    crops' dtype. Inference only: training runs no spatial axis."""
+
+    def __init__(self, model, rows, quant_backbone: Optional[Dict] = None):
+        self.model, self.rows, self.quant_backbone = model, rows, quant_backbone
+
     def __call__(self, crops_nhwc: torch.Tensor):
-        return self.head(self.features(crops_nhwc.permute(0, 3, 1, 2)))
+        if isinstance(self.model, TensorParallelHMR):
+            return self.model(crops_nhwc, self.rows)
+        if self.quant_backbone is not None:
+            from poserisk_release_tpu_torch.models.resnet_int8 import resnet50_forward
+
+            xf = resnet50_forward(self.quant_backbone, crops_nhwc, crops_nhwc.dtype,
+                                  rows=self.rows)
+        else:
+            x = crops_nhwc.permute(0, 3, 1, 2).to(self.model.conv1.weight.dtype)
+            xf = resnet50_walk(x, self.model.conv_bn, rows=self.rows)
+        return self.model.head(xf)
 

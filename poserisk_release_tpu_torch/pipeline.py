@@ -29,13 +29,13 @@ front from DETECTOR.calibration (apply_explicit_calibration), and
 DETECTOR.recalibrate_per_video re-derives them for every video.
 
 Mesh parallelism (parallel/, over torch.distributed): PARALLEL's data,
-model (tp), stage (pp) and expert (ep) axes, one process per rank. Every
-rank runs the Predictor's host side identically; each data rank runs the
-pose step on its rows of a chunk under its model axes (K1 crops on every
-data rank, on stage 0 under pp); the outputs are all-gathered, and only
-rank 0 writes files. The spatial axis (--sp) and the streaming scorer
-under a mesh are ROADMAP Queue 1 item 15b and raise.
-The bounded-memory streaming scorer is streaming.StreamingScorer.
+model (tp), stage (pp), expert (ep) and spatial (sp) axes, one process per
+rank. Every rank runs the Predictor's host side identically; each data
+rank runs the pose step on its rows of a chunk under its model axes (K1
+crops on every data rank, on stage 0 under pp; under sp every spatial rank
+crops its data rows whole and keeps its row window); the outputs are
+all-gathered, and only rank 0 writes files. The bounded-memory streaming
+scorer, on one device or any of these meshes, is streaming.StreamingScorer.
 """
 
 from __future__ import annotations
@@ -177,8 +177,9 @@ class PoseEstimator:
         spin_int8=True routes the ResNet-50 through the int8 PTQ backbone
         (models/resnet_int8), folded, calibrated and bias-corrected on the
         first crops this estimator sees (at most 8), in the crops' dtype
-        around its int8 convs (f32 strict, bf16 fast); under dp or ep rank 0
-        quantizes and every rank takes its backbone (a replica).
+        around its int8 convs (f32 strict, bf16 fast); under dp, ep or sp
+        rank 0 quantizes on whole crops and every rank takes its backbone
+        (a replica).
 
         mesh: a DeviceMesh (parallel/spmd.mesh_from_config), or None, in
         which case PARALLEL decides: any model axis, or num_devices > 1,
@@ -187,16 +188,15 @@ class PoseEstimator:
         estimator runs on one device. Under the mesh the HMR is Megatron-
         sharded over ``model`` (tp), GPipe-pipelined over ``stage`` with
         each rank holding only its stage's weights (pp), or replicated,
-        with the gendered SMPL tables one per ``expert`` rank (ep); chunks
-        split over ``data`` and every rank returns the whole chunk."""
+        with the gendered SMPL tables one per ``expert`` rank (ep); the
+        crop rows of every activation split over ``spatial`` (sp, with
+        halo exchanges: parallel/spmd.SpatialHMR, in the estimator's own
+        steps; the whole-row core stays for the server); chunks split over
+        ``data`` and every rank returns the whole chunk."""
         from poserisk_release_tpu_torch.parallel import mesh as pmesh
         from poserisk_release_tpu_torch.parallel import spmd
 
         pcfg = cfg.PARALLEL
-        if int(pcfg.spatial) > 1:
-            raise NotImplementedError(
-                f"PARALLEL.spatial={pcfg.spatial}: the spatial axis (crop rows with hand "
-                "halo exchanges) is not in the PyTorch port yet (ROADMAP Queue 1 item 15b)")
         names = _mesh_axes(cfg, mesh)
         if names and pcfg.data_axis not in names:
             raise ValueError(
@@ -204,10 +204,11 @@ class PoseEstimator:
         self._tp = spmd.MODEL_AXIS in names
         self._pp = spmd.STAGE_AXIS in names
         self._ep = spmd.EXPERT_AXIS in names
-        if self._pp and (self._tp or self._ep):
+        self._sp = spmd.SPATIAL_AXIS in names
+        if self._pp and (self._tp or self._sp or self._ep):
             raise ValueError(
                 "PARALLEL.stage (pipeline parallelism) cannot combine with the "
-                "model/expert axes in one mesh")
+                "model/spatial/expert axes in one mesh")
         if spin_int8 and (self._tp or self._pp):
             raise ValueError(
                 "spin_int8 cannot combine with model or stage parallelism: the quantized "
@@ -291,10 +292,30 @@ class PoseEstimator:
             if self.fast:
                 model.cast_backbone(torch.bfloat16)
             self.model = model.to(self.device, memory_format=torch.channels_last)
-        self._core_hooks = {"spin_forward": spin_forward, "expert_joints": expert_joints,
-                            "mesh": mesh}
-        self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride,
-                                         **self._core_hooks)
+        self._spin_forward = spin_forward
+        self._core_hooks = {"expert_joints": expert_joints, "mesh": mesh}
+        self._rows = None
+        if self._sp:
+            self._rows = pmesh.RowShards(pmesh.axis_group(mesh, spmd.SPATIAL_AXIS),
+                                         pmesh.axis_size(mesh, spmd.SPATIAL_AXIS),
+                                         pmesh.axis_index(mesh, spmd.SPATIAL_AXIS))
+        self._build_cores()
+
+    def _build_cores(self) -> None:
+        """The pose cores on the current backbone: `_pose_core` reads whole
+        crop rows (the server's step), `_step_core` is the estimator's own
+        steps' core, the same one unless the crop rows split over
+        ``spatial`` (JAX constrains the crops in those steps only)."""
+        from poserisk_release_tpu_torch.parallel.spmd import SpatialHMR
+
+        hooks = dict(self._core_hooks, pose_stride=self._pose_stride,
+                     quant_backbone=self._quant_backbone)
+        self._pose_core = make_pose_core(self.parents, spin_forward=self._spin_forward, **hooks)
+        self._step_core = self._pose_core
+        if self._rows is not None:  # self.model: the HMR, or its tp shard
+            self._step_core = make_pose_core(
+                self.parents, spin_forward=SpatialHMR(self.model, self._rows,
+                                                      self._quant_backbone), **hooks)
 
     @property
     def param_bytes(self) -> int:
@@ -331,8 +352,8 @@ class PoseEstimator:
             qparams = quantize_spin_backbone(
                 self._variables_f32, calib, min_stage=int(self.cfg.SPIN.int8_min_stage))
         else:
-            # dp / ep: one calibration, replicated (rank 0's, as the JAX
-            # estimator replicates its one quantized tree).
+            # dp / ep / sp: one calibration on whole crops, replicated (rank
+            # 0's, as the JAX estimator replicates its one quantized tree).
             from poserisk_release_tpu_torch.parallel.collectives import broadcast_object
 
             qparams = None
@@ -352,9 +373,7 @@ class PoseEstimator:
 
         self.quant_params = qparams
         self._quant_backbone = prepare_resnet50(qparams, self.device)
-        self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride,
-                                         quant_backbone=self._quant_backbone,
-                                         **self._core_hooks)
+        self._build_cores()
 
     def reset_calibration(self) -> None:
         """Drop the int8 backbone so the next crops (or calibrate_spin)
@@ -370,8 +389,7 @@ class PoseEstimator:
                 "was released; construct the estimator with "
                 "DETECTOR.recalibrate_per_video=True to keep it resident")
         self._quant_backbone = self.quant_params = None
-        self._pose_core = make_pose_core(self.parents, pose_stride=self._pose_stride,
-                                         **self._core_hooks)
+        self._build_cores()
 
     def calibrate_spin(self, crops) -> None:
         """Explicit spin_int8 calibration on representative person crops
@@ -385,7 +403,7 @@ class PoseEstimator:
         return self._spin_int8 and self._quant_backbone is None
 
     def _pose_step(self, crops: torch.Tensor):
-        return self._pose_core(self.model, self.smpl_params, crops)
+        return self._step_core(self.model, self.smpl_params, crops)
 
     def _crop(self, frames_u8: torch.Tensor, bboxes: torch.Tensor) -> torch.Tensor:
         """The pose step's crops (K1 on the card). A later pp stage crops
@@ -399,7 +417,7 @@ class PoseEstimator:
     def _pose_step_from_frames(self, frames_u8: torch.Tensor, bboxes: torch.Tensor):
         # Crop fused into the pose step: the host uploads raw uint8 frames
         # once and downloads only angles/joints.
-        return self._pose_core(self.model, self.smpl_params, self._crop(frames_u8, bboxes))
+        return self._step_core(self.model, self.smpl_params, self._crop(frames_u8, bboxes))
 
     def run(self, crops: np.ndarray, chunk: int = 0):
         """crops: (F, 224, 224, 3) float32 [0,1]. Chunked + padded execution;

@@ -40,8 +40,8 @@ that bucket's batch shape (pipeline.PoseEstimator.run_from_frames with
 chunk = bucket, then the REBA/RULA engines), since padding edge-repeats
 the last request as run_from_frames pads its last chunk.
 
-Under a mesh (cfg.PARALLEL's data, model, stage and expert axes over
-torch.distributed, parallel/), every rank builds the server; rank 0 owns
+Under a mesh (cfg.PARALLEL's data, model, stage, expert and spatial axes
+over torch.distributed, parallel/), every rank builds the server; rank 0 owns
 the request queue and the dispatcher and broadcasts each padded bucket
 batch to a worker loop on the other ranks, which stops on a sentinel at
 ``close()``. Buckets round up to the mesh quantum (the data axis, times
@@ -52,7 +52,8 @@ rank's own rows (crop -> pose -> scores), and the gather follows the
 replay outside the graph. Where collectives sit inside the step (tp, pp,
 ep) the step runs eagerly on the card: gloo cannot be captured, and
 capturing NCCL's collectives in the graphs is later work (ROADMAP). The
-spatial axis raises (ROADMAP Queue 1 item 15b).
+spatial axis is a no-op here, as in the JAX server: the step reads whole
+crop rows, so the spatial ranks compute their data rows as replicas.
 
 >>> with PoseScoringServer(frame_hw=(450, 800)) as server:
 ...     res = server.score(frame_u8, np.array([400., 225., 220., 220.]))
@@ -313,15 +314,14 @@ class PoseScoringServer:
         _run_bucket does after it, outside the bucket's graph."""
         est = self.estimator
         info_reba, info_rula = self._info_reba, self._info_rula
-        pose_step = est._pose_step_from_frames
+        # Whole crop rows: under sp the spatial ranks score their data
+        # rows as replicas, as the JAX server's step never constrains them.
+        core = est._pose_core
         if self._mesh is not None and not self._model_axes:
             core = make_pose_core(est.parents, quant_backbone=est._quant_backbone)
 
-            def pose_step(frames_u8, bboxes):
-                return core(est.model, est.smpl_params, est._crop(frames_u8, bboxes))
-
         def step(frames_u8: torch.Tensor, bboxes: torch.Tensor):
-            euler, joint_cam, _aa = pose_step(frames_u8, bboxes)
+            euler, joint_cam, _aa = core(est.model, est.smpl_params, est._crop(frames_u8, bboxes))
             reba = reba_mod.reba_frame_scores(euler, info_reba)["score"]
             rula = rula_mod.rula_frame_scores(euler, info_rula)["score"]
             return reba, rula, euler, joint_cam

@@ -56,7 +56,11 @@ from poserisk_release_tpu_torch.outputs.stats import (
     scores_summary_block,
     write_result_txt,
 )
-from poserisk_release_tpu_torch.pipeline import PoseEstimator, validate_rotation_roundtrip
+from poserisk_release_tpu_torch.pipeline import (
+    PoseEstimator,
+    _global_rank,
+    validate_rotation_roundtrip,
+)
 from poserisk_release_tpu_torch.scoring.reba import REBAScorer
 from poserisk_release_tpu_torch.scoring.rula import RULAScorer
 from poserisk_release_tpu_torch.tracking.mpt import (
@@ -303,10 +307,14 @@ class StreamingScorer:
     >>> scorer = StreamingScorer(detector=StubDetector())
     >>> result = scorer(video_path, add_info)
 
-    The JAX scorer's arguments except `mesh`, plus `device`: CUDA unless
-    given, and raises without it. It runs on one device: a cfg.PARALLEL
-    that describes a mesh raises (the scorer under a mesh comes with the
-    spatial axis, ROADMAP Queue 1 item 15b).
+    The JAX scorer's arguments, plus `device`: CUDA unless given, and
+    raises without it. mesh: as pipeline.PoseEstimator's, a DeviceMesh or
+    None, in which case cfg.PARALLEL decides (dp, tp, pp, ep, sp, over the
+    process group this rank has joined). Under a mesh every rank decodes,
+    detects and tracks the same clip (deterministic host work, replicated)
+    and its estimator takes the mesh; every rank returns the same results,
+    and rank 0 alone writes files (write_outputs, the annotated videos),
+    as the Predictor does.
     """
 
     def __init__(
@@ -314,6 +322,7 @@ class StreamingScorer:
         cfg: Config | None = None,
         detector=None,
         window: int = 256,
+        mesh=None,
         spin_variables=None,
         selection: str = "reference",
         fast: bool = False,
@@ -325,18 +334,14 @@ class StreamingScorer:
         if selection not in ("reference", "online"):
             raise ValueError(f"selection must be 'reference' or 'online', got {selection!r}")
         self.cfg = cfg or default_config()
-        pcfg = self.cfg.PARALLEL
-        if (pcfg.model, pcfg.spatial, pcfg.stage, pcfg.expert) != (1, 1, 1, 1) or pcfg.num_devices > 1:
-            raise NotImplementedError(
-                "StreamingScorer under a mesh is not in the PyTorch port yet "
-                "(ROADMAP Queue 1 item 15b); it runs on one device")
         self.device = resolve_device(device)
         self.window = window
         self.selection = selection
         self.smpl = SMPLFamily(self.cfg.SPIN.smpl_model_dir)
         self.estimator = PoseEstimator(self.cfg, self.smpl, variables=spin_variables,
                                        gender=gender, fast=fast, spin_int8=spin_int8,
-                                       device=self.device)
+                                       device=self.device, mesh=mesh)
+        self._writes = self.estimator.mesh is None or _global_rank() == 0
         self.detector = detector if detector is not None else StubDetector()
         # The Predictor's opt-in euler round-trip guard (--validate_rotations).
         self.validate_rotations = validate_rotations
@@ -363,7 +368,7 @@ class StreamingScorer:
         self._per_video_calibration_reset()
         if self.selection == "reference":
             return self._run_two_pass(video_path, add_info, max_frames,
-                                      video_output, video_types)
+                                      self._video_output(video_output), video_types)
         if video_output is not None:
             raise ValueError(
                 "video rendering requires the two-pass mode "
@@ -405,7 +410,7 @@ class StreamingScorer:
         if max_frames is not None:
             stop_at = min(stop_at, max_frames)
         render_plan, video_output = self._build_render_plan(
-            reba, rula, video_types, video_output)
+            reba, rula, video_types, self._video_output(video_output))
         if self.estimator._pose_stride > 1:
             # Chunk-aligned scoring per track (_TrackChunkScorer). Each
             # track buffers its own anchor pixels, so the shared union
@@ -606,6 +611,12 @@ class StreamingScorer:
                 writer.close()
         return result
 
+    def _video_output(self, video_output: Optional[str]) -> Optional[str]:
+        """Where this rank renders: nowhere on a rank that writes no files.
+        Rendering only decodes more windows, past the last scored frame,
+        so every rank still runs the same pose steps."""
+        return video_output if self._writes else None
+
     def _build_render_plan(self, reba, rula, video_types: str,
                            video_output: Optional[str]):
         """(render_plan, video_output): the (title, scorer, scores_attr,
@@ -727,8 +738,11 @@ class StreamingScorer:
         Predictor's post_process_scores / write_result_txt) and a
         stream_summary.json. score_type filters the families with the
         Predictor's --type parsing. Returns {title: (final_scores,
-        action_level, action_name)}."""
-        os.makedirs(output_path, exist_ok=True)
+        action_level, action_name)}. Under a mesh only rank 0 writes; every
+        rank returns the summary."""
+        writes = self._writes
+        if writes:
+            os.makedirs(output_path, exist_ok=True)
         wanted = score_type.replace(" ", "").upper().split(",")
         reba, rula = self._scorers()
         timestamp = (0, np.asarray(result.frames), result.total_frames)
@@ -741,10 +755,13 @@ class StreamingScorer:
                 continue
             final_scores, _, _ = post_process_scores(
                 [{"score": s, "log_score": []} for s in scores],
-                timestamp, output_path, title=title)
+                timestamp, output_path, title=title, make_plot=writes)
             action_level, action_name = scorer.action_level(final_scores[4])
-            write_result_txt(output_path, title, final_scores, action_level, action_name)
+            if writes:
+                write_result_txt(output_path, title, final_scores, action_level, action_name)
             summary[title] = (final_scores, action_level, action_name)
+        if not writes:
+            return summary
         with open(osp.join(output_path, "stream_summary.json"), "w") as f:
             json.dump(
                 {

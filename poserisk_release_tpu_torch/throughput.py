@@ -50,9 +50,11 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1,
     unchanged.
 
     The mesh hooks (parallel/): spin_forward(crops) -> (rotmat, betas,
-    cam) replaces the HMR module's forward (the tensor-parallel HMR, or the
+    cam) replaces the HMR module's forward (the tensor-parallel HMR; the
     pipelined one, which reads only the batch size of `crops` on stages
-    after the first). expert_joints (parallel/expert.
+    after the first; or the row-sharded SpatialHMR, which returns the same
+    whole outputs on every spatial rank, so what follows runs replicated
+    there). expert_joints (parallel/expert.
     make_expert_joints) replaces joints_only: smpl_params are then this
     rank's expert's tables plus a scalar int32 ``gender_id``. With a mesh
     whose data axis is wider than 1, `crops` are this data rank's rows of

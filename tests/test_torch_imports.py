@@ -102,15 +102,26 @@ def test_predictor_and_cli_without_device_raise_when_cuda_absent(no_cuda, tmp_pa
     ["--streaming", "--pp", "2"], ["--sp", "2"], ["--streaming", "--sp", "2"],
     ["--streaming", "--ep", "3"],
 ])
-def test_cli_rejects_later_slice_flags(argv, capsys):
-    """--sp is refused, and so is --streaming under a mesh: both are
-    ROADMAP item 15b (the other mesh flags are in the port now:
-    tests/test_torch_parallel.py)."""
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--cpu"] + argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err and "item 15b" in err
+def test_cli_runs_sp_and_streaming_under_a_mesh(argv, monkeypatch, tmp_path):
+    """--sp, and --streaming under any mesh, reach cfg.PARALLEL and spawn
+    the world's ranks (gloo with --cpu); nothing is refused."""
+    spawned = {}
+
+    def fake_run_ranks(fn, world, backend, init_method, args=(), timeout=None):
+        spawned.update(world=world, backend=backend, args=args[0], cfg=args[1])
+
+    monkeypatch.setattr(cli, "run_ranks", fake_run_ranks)
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    assert cli.main(["--cpu", "--input", str(tmp_path / "v.mp4")] + argv) == 0
+    p = spawned["cfg"].PARALLEL
+    assert spawned["world"] == p.num_devices * p.model * p.stage * p.expert * p.spatial > 1
+    assert spawned["backend"] == "gloo"
+    assert spawned["args"].streaming == ("--streaming" in argv)
+    flag, size = argv[-2:]
+    axis = {"--tp": "model", "--pp": "stage", "--ep": "expert", "--sp": "spatial",
+            "--num_devices": "num_devices"}[flag]
+    assert getattr(p, axis) == int(size)
 
 
 def test_streaming_without_device_raises_when_cuda_absent(no_cuda, tmp_path):
@@ -227,11 +238,11 @@ def test_debug_frame_and_detector_weights_raise(tmp_path, monkeypatch):
         "weights": str(weights), "img_size": 320, "detection_threshold": 0.3,
         "nms_threshold": 0.5, "batch_size": 4, "rect_letterbox": True,
         "max_device_dets": 32})
-    loaded = []
+    loaded, params = [], detector.init_yolo_params(0)  # folding copies: one draw serves both
 
     def fake_load(path):
         loaded.append(path)
-        return detector.init_yolo_params(0)
+        return params
 
     monkeypatch.setattr(detector, "load_darknet_weights", fake_load)
     det = build_detector(cfg, "cpu")

@@ -200,8 +200,8 @@ def test_initialize_distributed_is_a_single_process_noop():
 
 
 def test_estimator_layout_errors():
-    """JAX's three ValueErrors, raised before any process group is needed,
-    and the axes still to come (item 15b) or needing a group."""
+    """JAX's ValueErrors, raised before any process group is needed (pp
+    with tp, sp or ep; int8 with tp), and a mesh needing a group."""
     cfg = default_config()
     family = SMPLFamily(cfg.SPIN.smpl_model_dir)
     with pytest.raises(ValueError, match="lack the configured data axis"):
@@ -215,17 +215,20 @@ def test_estimator_layout_errors():
     with pytest.raises(ValueError, match="spin_int8"):
         PoseEstimator(cfg.replace(PARALLEL={"model": 4, "num_devices": 2}), family,
                       spin_int8=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        PoseEstimator(cfg.replace(PARALLEL={"spatial": 2}), family, device="cpu")
+    with pytest.raises(ValueError, match="cannot combine"):
+        PoseEstimator(cfg.replace(PARALLEL={"stage": 2, "spatial": 2}), family, device="cpu")
     with pytest.raises(RuntimeError, match="no process group"):
         PoseEstimator(cfg.replace(PARALLEL={"num_devices": 2}), family, device="cpu")
 
 
-def test_streaming_under_a_mesh_names_item_15b():
+def test_streaming_under_a_mesh_without_a_group_raises():
+    """The streaming scorer takes the mesh PARALLEL describes, which needs
+    the process group the ranks join (tests/test_torch_parallel_ranks.py
+    streams on gloo ranks); it never falls back to one device."""
     from poserisk_release_tpu_torch.streaming import StreamingScorer
 
     for parallel in ({"num_devices": 2}, {"model": 2}, {"spatial": 2}):
-        with pytest.raises(NotImplementedError, match="item 15b"):
+        with pytest.raises(RuntimeError, match="no process group"):
             StreamingScorer(cfg=default_config().replace(PARALLEL=parallel), device="cpu")
 
 
@@ -234,11 +237,13 @@ def test_streaming_under_a_mesh_names_item_15b():
     (["--tp", "2", "--num_devices", "2"], {"model": 2, "num_devices": 2}),
     (["--pp", "2", "--pp_microbatches", "2"], {"stage": 2, "stage_microbatches": 2}),
     (["--ep", "4"], {"expert": 4}),
+    (["--sp", "2"], {"spatial": 2}),
+    (["--streaming", "--num_devices", "2"], {"num_devices": 2}),
 ])
 def test_cli_flags_reach_the_config_and_spawn_the_world(argv, parallel, monkeypatch, tmp_path):
     """The mesh flags map onto cfg.PARALLEL as in the JAX CLI, and without a
     launcher the CLI spawns num_devices (one on the CPU) times the model
-    axes ranks on gloo with --cpu."""
+    axes ranks on gloo with --cpu, --streaming included."""
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
     for key, value in parallel.items():
         assert getattr(cfg.PARALLEL, key) == value
@@ -251,15 +256,9 @@ def test_cli_flags_reach_the_config_and_spawn_the_world(argv, parallel, monkeypa
     for var in ("RANK", "WORLD_SIZE"):
         monkeypatch.delenv(var, raising=False)
     assert cli.main(["--cpu", "--input", str(tmp_path / "v.mp4")] + argv) == 0
-    n_model = cfg.PARALLEL.model * cfg.PARALLEL.stage * cfg.PARALLEL.expert
-    dp = cfg.PARALLEL.num_devices or 1
+    p = cfg.PARALLEL
+    n_model = p.model * p.stage * p.expert * p.spatial
+    dp = p.num_devices or 1
     assert spawned["world"] == dp * n_model and spawned["backend"] == "gloo"
     assert spawned["init"].startswith("file://")
     assert spawned["cfg"].PARALLEL.num_devices == dp
-
-
-def test_cli_refuses_sp_naming_item_15b(capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--cpu", "--sp", "2"])
-    assert exc.value.code == 2
-    assert "item 15b" in capsys.readouterr().err

@@ -210,10 +210,10 @@ def test_constructor_contracts():
     with pytest.raises(ValueError, match="pose_stride"):
         PoseScoringServer(cfg=_cfg(SPIN={"pose_stride": 2}), warm=False, device="cpu")
     # A mesh needs a process group (tests/test_torch_parallel_ranks.py
-    # serves on gloo ranks); the spatial axis is ROADMAP item 15b.
+    # serves on gloo ranks, the spatial axis among them).
     with pytest.raises(RuntimeError, match="process group"):
         PoseScoringServer(cfg=_cfg(PARALLEL={"num_devices": 2}), warm=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    with pytest.raises(RuntimeError, match="process group"):
         PoseScoringServer(cfg=_cfg(PARALLEL={"spatial": 2}), warm=False, device="cpu")
 
 

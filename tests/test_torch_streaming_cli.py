@@ -9,7 +9,8 @@ and must write the same bytes: reba_result.txt, rula_result.txt and
 stream_summary.json, under --multi_person in the same person_<id>/
 directories.
 
-Against the port's batch Predictor the per-frame scores are exactly equal
+Where the port is held against itself, it crops 64x64 (SMALL). Against
+the port's batch Predictor the per-frame scores are exactly equal
 at pose_stride 1 and 2 and under contention, and the streamed
 REBA_video.mp4 decodes to the frames of the batch render_result_video. The
 contracts: a tensor frame source gives the numpy source's bits; a
@@ -46,6 +47,11 @@ from tests.test_torch_streaming import (  # noqa: F401  (clips, weights: fixture
     two_survivor_dets,
     weights,
 )
+
+
+# The port held against itself crops 64x64: what these tests check does not
+# depend on the crop size, and ResNet-50 costs a twelfth of 224x224's.
+SMALL = {"MODEL": {"input_shape": (64, 64)}}
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +130,7 @@ def test_streamed_video_is_frame_exact_vs_batch_renderer(clips, weights, tmp_pat
     renderer's 'Not detected target' branch and the full-clip decode. The
     per-frame scores are the batch Predictor's too (pose_stride 1)."""
     dets = [[[30.0, 20.0, 80.0, 110.0, 0.9]] if i < 30 else [] for i in range(40)]
-    cfg = _cfgs()[1]
+    cfg = _cfgs(**SMALL)[1]
     pred = Predictor(cfg=cfg, detector=ScriptedDetector(dets), visualize=True,
                      spin_variables=weights[1], device="cpu")
     pred.reba, pred.rula = Recording(pred.reba), Recording(pred.rula)
@@ -150,7 +156,7 @@ BATCH_CASES = {
 @pytest.mark.parametrize("case", sorted(BATCH_CASES))
 def test_streaming_equals_the_ports_batch_predictor(case, clips, weights, tmp_path):
     clip, dets, over = BATCH_CASES[case]
-    cfg = _cfgs(**over)[1]
+    cfg = _cfgs(**over, **SMALL)[1]
     sd = weights[1]
 
     stream = StreamingScorer(cfg=cfg, detector=ScriptedDetector(dets()), window=WINDOW,
@@ -175,7 +181,7 @@ def test_tensor_source_equals_numpy_source(weights, pose_stride):
     from poserisk_release_tpu_torch.body.smpl import SMPLFamily
     from poserisk_release_tpu_torch.pipeline import PoseEstimator
 
-    cfg = default_config().replace(SPIN={"pose_stride": pose_stride})
+    cfg = default_config().replace(SPIN={"pose_stride": pose_stride}, **SMALL)
     est = PoseEstimator(cfg, SMPLFamily(cfg.SPIN.smpl_model_dir), variables=weights[1],
                         device="cpu")
     rs = np.random.RandomState(5)
@@ -193,8 +199,8 @@ def test_tensor_source_equals_numpy_source(weights, pose_stride):
 def test_mid_clip_decode_failure_and_missing_video_raise(clips, weights, monkeypatch):
     import poserisk_release_tpu_torch.io.video as video_mod
 
-    scorer = StreamingScorer(detector=StubDetector(), window=8, spin_variables=weights[1],
-                             device="cpu")
+    scorer = StreamingScorer(cfg=default_config().replace(**SMALL), detector=StubDetector(),
+                             window=8, spin_variables=weights[1], device="cpu")
     with pytest.raises(FileNotFoundError, match="cannot open video"):
         scorer("/nonexistent/clip.mp4", INFO)
     real = video_mod._decoded_rgb
@@ -233,8 +239,8 @@ def test_no_tracks_and_refused_modes_raise(clips, weights, selection):
 
 
 def test_unmatched_video_types_warn_and_skip_rendering(clips, weights, tmp_path):
-    scorer = StreamingScorer(detector=StubDetector(), window=16, spin_variables=weights[1],
-                             device="cpu")
+    scorer = StreamingScorer(cfg=default_config().replace(**SMALL), detector=StubDetector(),
+                             window=16, spin_variables=weights[1], device="cpu")
     with pytest.warns(UserWarning, match="neither REBA nor RULA"):
         res = scorer(clips["long"], INFO, max_frames=16, video_output=str(tmp_path / "x"),
                      video_types="NONSENSE")
@@ -249,7 +255,7 @@ def test_live_windows_do_not_grow_with_the_clip(weights, monkeypatch, selection,
     """Bounded memory: an in-memory window stream tracks every window it
     yields by weakref; the most windows alive at once is the same for a
     24-frame and a 48-frame stream at window 8."""
-    cfg = default_config().replace(PARALLEL={"frames_per_step": 8}, **over)
+    cfg = default_config().replace(PARALLEL={"frames_per_step": 8}, **over, **SMALL)
 
     def peak_live_windows(n_frames):
         live, peak = [], [0]
