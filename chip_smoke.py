@@ -67,6 +67,11 @@ counter set to 0 just before it and read just after:
   and dp 2 x tp 2 on 4 spawned ranks (sharing cuda:0 over gloo on a
   one-card machine), each equal to the single-card step (its update leaf
   by leaf), K1 on every rank;
+* the port's bench (bench_phase: poserisk_release_tpu_torch.bench in-process
+  at B = 128, two passes, strict on), whose record must carry the root
+  bench.py's keys plus device, power_limit and the peak bytes;
+* the training augmentation crop (augment_check: ops/crop.crop_batch_affine
+  with rotation, flip and colour scale) on the card against the CPU;
 * the experiment paths of K5 (tools/exp_fused_stage: the fused int8
   residual stage against its plain version and the per-conv int8 chain, at
   the three stage shapes) and K3 with K1m (tools/exp_window_crop: the
@@ -2307,6 +2312,74 @@ def window_crop_check(device, main_frames):
     return k3, k1m
 
 
+# The root bench.py's record keys, and the device keys every result of the
+# port's bench carries besides.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "fps_passes", "fps_median",
+              "variance_band", "strict_fps", "strict_vs_baseline", "strict_fps_passes",
+              "strict_fps_median", "strict_variance_band", "strict_unit"}
+BENCH_DEVICE_KEYS = {"device", "power_limit", "peak_bytes", "strict_peak_bytes"}
+BENCH_ENV = {"BENCH_BATCH": "128", "BENCH_PASSES": "2", "BENCH_STRICT": "1"}
+
+
+def bench_phase(device) -> int:
+    """The port's bench (poserisk_release_tpu_torch.bench) in-process at its
+    defaults but BENCH_ENV: the full-frame step at full width, bf16, int8
+    YOLO on the rect canvas, fused K2, strides 8/8 and then 1/1. Its record
+    must carry bench.py's keys and the device keys, positive rates, and the
+    card's name. Returns K2's launches."""
+    import importlib
+
+    from poserisk_release_tpu_torch.ops.resample import fused_letterbox_crop_cuda
+
+    saved = {k: os.environ.pop(k) for k in list(os.environ) if k.startswith("BENCH_")}
+    os.environ.update(BENCH_ENV)
+    try:
+        bench = importlib.reload(importlib.import_module("poserisk_release_tpu_torch.bench"))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        record = bench.main()
+        seconds = time.perf_counter() - t0
+        launches = fused_letterbox_crop_cuda.launches
+    finally:
+        for k in BENCH_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+    print(json.dumps({"phase": "bench_phase", "env": BENCH_ENV, "seconds": seconds,
+                      "k2_launches": launches, "record": record}))
+    if set(record) != BENCH_KEYS | BENCH_DEVICE_KEYS:
+        raise AssertionError(f"bench record keys: {sorted(record)}")
+    if not (record["value"] > 0 and record["strict_fps"] > 0):
+        raise AssertionError(f"bench rates: {record['value']}, {record['strict_fps']}")
+    if record["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench device {record['device']!r}")
+    if launches <= 0:
+        raise AssertionError("the bench launched no letterbox+crop kernel")
+    return launches
+
+
+def augment_check(device) -> None:
+    """The training augmentation crop (ops/crop.crop_batch_affine, plain
+    PyTorch) on the card, on the CHUNK x 450x800 check frames with rotation,
+    flip and colour scale, held within 1e-5 of the same call on the CPU."""
+    from poserisk_release_tpu_torch.ops.crop import crop_batch_affine
+
+    frames, bboxes = check_inputs(device, seed=2)
+    rng = np.random.RandomState(2)
+    args = (bboxes, torch.as_tensor(rng.uniform(1.2, 1.5, CHUNK), dtype=torch.float32),
+            torch.as_tensor(rng.uniform(-45.0, 45.0, CHUNK), dtype=torch.float32),
+            torch.as_tensor(rng.rand(CHUNK) < 0.5),
+            torch.as_tensor(rng.uniform(0.8, 1.2, (CHUNK, 3)), dtype=torch.float32))
+    dev_args = tuple(a.to(device) for a in args)
+    got = crop_batch_affine(frames, *dev_args)
+    want = crop_batch_affine(frames.cpu(), *(a.cpu() for a in args))
+    err = float((got.cpu() - want).abs().max())
+    ms = time_ms(lambda: crop_batch_affine(frames, *dev_args), reps=10, per_rep=2)
+    print(json.dumps({"phase": "augment_check", "frames": list(frames.shape),
+                      "out": list(got.shape), "max_abs_err_vs_cpu": err, "ms": ms}))
+    if not (got.shape == (CHUNK, OUT, OUT, 3) and err <= 1e-5):
+        raise AssertionError(f"augmentation crop on the card vs the CPU: {err}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2392,9 +2465,11 @@ def main() -> int:
                                   spin_int8=True)
     k2_launches += full_frame(device, frames, main_bboxes, q_yolo, variables, smpl, cfg, True,
                               quant_backbone=prepare_resnet50(int8_est.quant_params, device))
+    k2_launches += bench_phase(device)
     k2["launches"] = k2_launches
     k5 = stage_check(device, frames)
     k3, k1m = window_crop_check(device, frames)
+    augment_check(device)
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k1m]}))
     print(smi)

@@ -237,6 +237,11 @@ class SMPLModel:
             raise FileNotFoundError(f"No SMPL asset for gender={gender} in {model_dir}")
         return cls.from_arrays(synthetic_smpl_arrays(), gender=gender)
 
+    def vertex_segmentation(self) -> np.ndarray:
+        """Dominant-joint index per vertex: argmax of the skinning weights
+        (the reference's vertice_segmentation buffer, smpl_layer.py:57)."""
+        return np.argmax(self.weights, axis=1)
+
     def extended_joint_regressor(self) -> np.ndarray:
         """(J+5, V) regressor with one-hot face-keypoint rows appended.
 

@@ -1,6 +1,7 @@
 """The resamples of raw frames: the bbox crop (kernel K1's plain version and
-its dispatch), the windowed crop (kernel K3's) and the detector letterbox
-(kernel K2's letterbox half).
+its dispatch), the training augmentation crop (rotation, flip, colour; plain
+PyTorch, as the JAX package's is plain XLA), the windowed crop (kernel K3's)
+and the detector letterbox (kernel K2's letterbox half).
 
 The reference crops one frame at a time on DataLoader workers with
 cv2.warpAffine (reference lib/utils/_img_utils.py:53-101, 219-252): bbox
@@ -109,6 +110,107 @@ def crop_batch(
     if images.device.type == "cpu":
         return crop_batch_plain(images, bboxes, scale, out_size, out_dtype)
     raise ValueError(f"crop_batch has no path for device {images.device}")
+
+
+def sample_augmentation(rng: np.random.RandomState, aug_cfg=None, scale_factor: float = 0.3,
+                        color_factor: float = 0.2):
+    """Training-crop augmentation parameters, the reference's do_augmentation
+    (lib/utils/_img_utils.py:30-38): scale ~ U(1.2, 1.2 + scale_factor),
+    color_scale ~ U(1 - cf, 1 + cf) per channel. The reference disables its
+    rotation and flip (rot = 0, do_flip = False); config.AugConfig turns
+    them back on: rot ~ clip(N(0, 1), -2, 2) * rotate_factor, and flip ~
+    Bernoulli(0.5) when aug_cfg.flip. The draws come from `rng` in the JAX
+    package's order. Returns (scale, rot_deg, do_flip, color_scale (3,))."""
+    scale = rng.uniform(1.2, 1.2 + scale_factor)
+    rot = 0.0
+    do_flip = False
+    if aug_cfg is not None and aug_cfg.rotate_factor:
+        rot = float(np.clip(rng.randn(), -2.0, 2.0) * aug_cfg.rotate_factor)
+    if aug_cfg is not None and aug_cfg.flip:
+        do_flip = bool(rng.rand() <= 0.5)
+    color_scale = np.array(
+        [rng.uniform(1.0 - color_factor, 1.0 + color_factor) for _ in range(3)], np.float32)
+    return scale, rot, do_flip, color_scale
+
+
+def crop_batch_affine(
+    images: torch.Tensor,  # (N, H, W, C) uint8 or float
+    bboxes,                # (N, 4) [cx, cy, w, h]
+    scales,                # (N,)
+    rots_deg,              # (N,)
+    flips,                 # (N,) bool
+    color_scales,          # (N, C)
+    out_size: int = 224,
+) -> torch.Tensor:
+    """Augmentation crop with rotation, horizontal flip and a per-channel
+    colour scale: (N, out, out, C) f32 in [0, 1], on the images' device.
+    The reference's warp (gen_trans_from_patch_cv + generate_patch_image_cv,
+    lib/utils/_img_utils.py:53-101) inverts to
+
+        src = c + R(rot) @ ((dst - out/2) * bbox * scale / out),
+
+    with the flip applied as an image mirror and c_x -> W - 1 - c_x before
+    the warp. Each of the four bilinear taps outside the frame weighs zero
+    (F.grid_sample's edge rule differs), then the colour scale, then a clip
+    to [0, 1]: the JAX package's gather, rounded as XLA compiles it. The
+    rot = 0 inference crop is crop_batch."""
+    # XLA divides by a constant as a multiply by its f32 reciprocal, and
+    # fuses each first multiply-add of the sample positions into one FMA (a
+    # single rounding); the port computes both the same way.
+    device, f64 = images.device, torch.float64
+    imgs = images.to(torch.float32)
+    if images.dtype == torch.uint8:
+        imgs = imgs * (1.0 / 255.0)
+    N, H, W = imgs.shape[0], imgs.shape[1], imgs.shape[2]
+    bboxes = torch.as_tensor(bboxes, dtype=torch.float32, device=device)
+    scales = torch.as_tensor(scales, dtype=torch.float32, device=device)
+    rots_deg = torch.as_tensor(rots_deg, dtype=torch.float32, device=device)
+    flips = torch.as_tensor(flips, dtype=torch.bool, device=device)
+    color_scales = torch.as_tensor(color_scales, dtype=torch.float32, device=device)
+
+    cx = torch.where(flips, W - bboxes[:, 0] - 1.0, bboxes[:, 0])
+    cy = bboxes[:, 1]
+    step_x = bboxes[:, 2] * scales * (1.0 / out_size)
+    step_y = bboxes[:, 3] * scales * (1.0 / out_size)
+    offs = torch.arange(out_size, dtype=torch.float32, device=device) - out_size * 0.5
+    dx = offs[None, None, :] * step_x[:, None, None]  # (N, 1, out)
+    dy = offs[None, :, None] * step_y[:, None, None]  # (N, out, 1)
+    # cos and sin in float64, rounded once: the same f32 values on every
+    # device (CUDA's f32 cosf and the CPU's differ by an ulp in ~5% of
+    # angles), and closer to XLA's than the CPU's f32 functions.
+    rot = (rots_deg * (np.pi / 180.0)).to(f64)
+    cs = torch.cos(rot).to(torch.float32)[:, None, None]
+    sn = torch.sin(rot).to(torch.float32)[:, None, None]
+    # The FMA: float64 holds dx * cs exactly, so the sum rounded once to f32
+    # is the FMA's value (but for double-rounding ties).
+    src_x = (cx[:, None, None].to(f64) + dx.to(f64) * cs.to(f64)).to(torch.float32) - dy * sn
+    src_y = (cy[:, None, None].to(f64) + dx.to(f64) * sn.to(f64)).to(torch.float32) + dy * cs
+    # Undo the mirror: flipped-image pixel s is original pixel W - 1 - s.
+    src_x = torch.where(flips[:, None, None], W - 1.0 - src_x, src_x)
+
+    x0, y0 = torch.floor(src_x), torch.floor(src_y)
+    fx, fy = src_x - x0, src_y - y0
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    b = torch.arange(N, device=device)[:, None, None]
+
+    def tap(yi, xi):
+        valid = ((yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)).to(torch.float32)
+        return imgs[b, yi.clamp(0, H - 1), xi.clamp(0, W - 1)] * valid[..., None]
+
+    out = (tap(y0i, x0i) * ((1 - fy) * (1 - fx))[..., None]
+           + tap(y0i, x0i + 1) * ((1 - fy) * fx)[..., None]
+           + tap(y0i + 1, x0i) * (fy * (1 - fx))[..., None]
+           + tap(y0i + 1, x0i + 1) * (fy * fx)[..., None])
+    return torch.clamp(out * color_scales[:, None, None, :], 0.0, 1.0)
+
+
+def crop_center_offset_reference_parity(out_size: int) -> float:
+    """The reference maps dst pixel x to the source offset (x - out/2) *
+    step: cv2.getAffineTransform on its three (centre, centre + down, centre
+    + right) point pairs gives src = c + (x - out/2) * (size * scale) / out
+    with NO half-pixel shift. Resample parity with the reference hinges on
+    it."""
+    return out_size * 0.5
 
 
 # ---------------------------------------------------------------------------

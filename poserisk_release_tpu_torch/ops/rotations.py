@@ -147,6 +147,17 @@ def rotmat_to_euler_deg(R) -> torch.Tensor:
     return rotmat_to_euler_xyz(R) * (180.0 / math.pi)
 
 
+def is_rotation_matrix(R, tol: float = 1e-6) -> torch.Tensor:
+    """Orthonormality check, the reference's isRotationMatrix
+    (coord_utils.py:62-67): ||R^T R - I|| < tol per matrix. Returns a
+    boolean tensor over the leading axes."""
+    R = _as_tensor(R)
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    defect = torch.linalg.vector_norm(
+        (torch.matmul(R.transpose(-1, -2), R) - eye).reshape(R.shape[:-2] + (9,)), dim=-1)
+    return defect < tol
+
+
 def euler_roundtrip_defect(R) -> torch.Tensor:
     """Per-matrix SIGNED-sum defect of the rotmat -> euler -> rotmat loop,
     the reference's ``(rotation_matrix - rotation_matrix2).sum() > 0.1``
@@ -213,3 +224,31 @@ def axis_angle_to_rotmat_smpl(aa) -> torch.Tensor:
     half = norm * 0.5
     quat = torch.cat([torch.cos(half), torch.sin(half) * (aa / norm)], dim=-1)
     return quat_to_rotmat(quat)
+
+
+def rotation_matrix_to_rot_vec(R) -> torch.Tensor:
+    """The reference's standalone rotation_matrix_to_rotVec
+    (coord_utils.py:32-43) over (..., 3, 3), by its own formula rather than
+    rotmat_to_axis_angle's (cv2's): theta = arccos((trace - 1) / 2), and the
+    degenerate test is sin(theta) == 0 EXACTLY. In floats that fires only for
+    theta == 0 (sin(pi) is ~1.2e-16, not 0), so near-pi matrices go through
+    the generic formula and degrade as in the reference. An invalid trace
+    (|c| > 1 from accumulated error) gives NaN where math.acos would raise."""
+    R = _as_tensor(R)
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos((trace - 1.0) * 0.5)
+    sin_theta = torch.sin(theta)
+    degenerate = sin_theta == 0
+    multi = 1.0 / (2.0 * torch.where(degenerate, torch.ones_like(sin_theta), sin_theta))
+    rx = multi * (R[..., 2, 1] - R[..., 1, 2]) * theta
+    ry = multi * (R[..., 0, 2] - R[..., 2, 0]) * theta
+    rz = multi * (R[..., 1, 0] - R[..., 0, 1]) * theta
+    vec = torch.stack([rx, ry, rz], dim=-1)
+    return torch.where(degenerate[..., None], torch.zeros_like(vec), vec)
+
+
+def euler_deg_to_axis_angle(euler_deg) -> torch.Tensor:
+    """XYZ Euler degrees (..., 3) -> axis-angle, cv2 convention: the
+    reference's euler_angle_to_axis_angle (coord_utils.py:97-103), degrees
+    -> Rz @ Ry @ Rx -> rotation vector."""
+    return rotmat_to_axis_angle(euler_xyz_to_rotmat(_as_tensor(euler_deg) * (math.pi / 180.0)))

@@ -131,6 +131,91 @@ def test_dispatch_on_cpu_is_the_plain_version_and_kernel_refuses_cpu():
     assert crop_batch_cuda.launches == before
 
 
+# The training augmentation crop (rotation, flip, colour scale), held
+# against the JAX package's crop_batch_affine on u8 and f32 frames with
+# boxes partly outside them. The port reproduces how XLA compiles the JAX
+# warp (a division by a constant as a multiply by its f32 reciprocal, the
+# first multiply-add of each sample position as one FMA), so where both
+# packages have the same cos and sin of the angle they agree to an ulp of
+# the four taps: 2e-6. XLA's f32 cos and sin miss the correctly rounded
+# value (the port's) for ~1-2% of angles, by an ulp; that can move a sample
+# position by one f32 ulp (6.1e-5 px below 1024), and the crop by that
+# times the image gradient, a full scale per pixel on pixel noise or at the
+# frame's zero border, times the colour scale (<= 1.3): 1e-4 on such
+# frames. Seed 0 draws one such angle (frame 5).
+AUG_BOXES = np.array([[400, 225, 220, 220], [100, 80, 60, 120], [780, 440, 100, 50],
+                      [-20, 10, 80, 80], [200, 300, 150, 90], [10, 430, 70, 70]], np.float32)
+
+
+def _aug_inputs(seed=0):
+    rng = np.random.RandomState(seed)
+    n = len(AUG_BOXES)
+    rots = rng.uniform(-60.0, 60.0, n).astype(np.float32)
+    rots[0] = 0.0
+    return (rng.uniform(1.2, 1.5, n).astype(np.float32), rots,
+            np.array([False, True, False, True, True, False]),
+            rng.uniform(0.7, 1.3, (n, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("content", ["smooth", "noise"])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_affine_crop_matches_jax(content, dtype):
+    import jax.numpy as jnp
+
+    from poserisk_release_tpu.ops.crop import crop_batch_affine as jax_crop_batch_affine
+    from poserisk_release_tpu_torch.ops.crop import crop_batch_affine
+
+    frames = (_smooth_frames if content == "smooth" else _noise_frames)(len(AUG_BOXES),
+                                                                         (450, 800))
+    if dtype == "float32":
+        frames = (frames / 255.0).astype(np.float32)
+    args = (AUG_BOXES,) + _aug_inputs()
+    want = np.asarray(jax_crop_batch_affine(jnp.asarray(frames),
+                                            *(jnp.asarray(a) for a in args), out_size=96))
+    got = crop_batch_affine(torch.as_tensor(frames), *args, out_size=96).numpy()
+    assert got.shape == want.shape == (6, 96, 96, 3) and got.dtype == np.float32
+    rad = torch.as_tensor(args[2]) * (np.pi / 180.0)
+    same_trig = np.array([
+        np.asarray(jnp.cos(jnp.asarray(rad.numpy()))) == torch.cos(rad.double()).float().numpy(),
+        np.asarray(jnp.sin(jnp.asarray(rad.numpy()))) == torch.sin(rad.double()).float().numpy(),
+    ]).all(axis=0)
+    assert list(same_trig) == [True] * 5 + [False]
+    np.testing.assert_allclose(got[same_trig], want[same_trig], atol=2e-6)
+    np.testing.assert_allclose(got[~same_trig], want[~same_trig], atol=1e-4)
+    assert got.min() >= 0.0 and got.max() <= 1.0
+    assert (got[3] == 0).all(axis=-1).mean() > 0.1  # the box at (-20, 10) reads the zero border
+
+
+@pytest.mark.parametrize("aug", ["none", "defaults", "rotate_and_flip"])
+def test_sample_augmentation_draws_like_jax(aug):
+    """Equal seeds, equal draws, in the JAX package's order; the port reads
+    its own config.AugConfig."""
+    from poserisk_release_tpu.config import AugConfig as JaxAugConfig
+    from poserisk_release_tpu.ops.crop import sample_augmentation as jax_sample_augmentation
+    from poserisk_release_tpu_torch.config import AugConfig
+    from poserisk_release_tpu_torch.ops.crop import sample_augmentation
+
+    kw = {"none": None, "defaults": {}, "rotate_and_flip": {"flip": True, "rotate_factor": 30.0}}[aug]
+    port_cfg, jax_cfg = (None, None) if kw is None else (AugConfig(**kw), JaxAugConfig(**kw))
+    rng, jax_rng = np.random.RandomState(11), np.random.RandomState(11)
+    draws = [sample_augmentation(rng, port_cfg, scale_factor=0.25) for _ in range(40)]
+    want = [jax_sample_augmentation(jax_rng, jax_cfg, scale_factor=0.25) for _ in range(40)]
+    for (s, r, f, c), (ws, wr, wf, wc) in zip(draws, want):
+        assert (s, r, f) == (ws, wr, wf) and type(f) is type(wf) is bool
+        assert c.dtype == wc.dtype == np.float32 and np.array_equal(c, wc)
+    assert rng.randint(1 << 30) == jax_rng.randint(1 << 30)  # both streams at the same place
+    flips = {f for _, _, f, _ in draws}
+    assert flips == ({False, True} if aug == "rotate_and_flip" else {False})
+
+
+def test_affine_crop_center_offset_matches_jax():
+    from poserisk_release_tpu.ops.crop import crop_center_offset_reference_parity as jax_offset
+    from poserisk_release_tpu_torch.ops.crop import crop_center_offset_reference_parity
+
+    for out in (64, 224, 225):
+        assert crop_center_offset_reference_parity(out) == jax_offset(out) == out * 0.5
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

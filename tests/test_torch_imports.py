@@ -45,7 +45,7 @@ def test_importing_every_module_loads_no_jax():
                 "parallel.distributed", "parallel.collectives", "parallel.spmd",
                 "parallel.pipeline", "parallel.expert", "train", "train.losses", "train.optim",
                 "train.step", "train.datasets", "train.plots", "io.images", "io.keypoints",
-                "ops.sampling", "utils.profiling", "tools.data_preprocessing"):
+                "ops.sampling", "utils.profiling", "tools.data_preprocessing", "bench"):
         assert f"poserisk_release_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

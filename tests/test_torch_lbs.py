@@ -61,6 +61,14 @@ def test_synthetic_bodies_are_the_same(models):
         np.testing.assert_array_equal(getattr(tm, name), getattr(jm, name), err_msg=name)
 
 
+def test_vertex_segmentation_matches_jax(models):
+    jm, tm = models
+    got = tm.vertex_segmentation()
+    np.testing.assert_array_equal(got, jm.vertex_segmentation())
+    assert got.shape == (tm.num_verts,) and got.dtype == np.int64
+    assert set(np.unique(got)) <= set(range(tm.num_joints))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_lbs_matches_jax_on_mixed_batches(models, seed):
     from poserisk_release_tpu.ops.lbs import LBS as JaxLBS

@@ -137,3 +137,44 @@ def test_slerp_rotmat(dtype):
     want = np.asarray(J.slerp_rotmat(jnp.asarray(ra), jnp.asarray(rb), jnp.asarray(t)))
     np.testing.assert_allclose(got, want, atol=TOL[dtype] * 10)
     np.testing.assert_array_equal(got[0], ra[0])  # t == 0 returns Ra bit-exactly
+
+
+def _not_rotations(dtype):
+    """Scaled and sheared matrices, and an identity whose trace exceeds 3."""
+    mats = _rotmats(dtype)[:8].copy()
+    mats[:4] *= dtype(1.001)
+    mats[4:, 0, 1] += dtype(1e-3)
+    return np.concatenate([mats, (np.eye(3) * 1.001)[None].astype(dtype)])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_is_rotation_matrix(dtype):
+    mats = np.concatenate([_rotmats(dtype), _gimbal_mats(dtype), _not_rotations(dtype)])
+    want = np.asarray(J.is_rotation_matrix(jnp.asarray(mats)))
+    got = T.is_rotation_matrix(_t(mats)).numpy()
+    assert got.dtype == np.bool_
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == len(mats) - 9  # every rotation passes, every other matrix fails
+
+
+def test_rotation_matrix_to_rot_vec():
+    """The reference's own formula, in float64 as its scalar Python math is:
+    random rotations within 1e-6; the edge cases (theta ~ 0, near pi,
+    exactly pi), which its exact sin(theta) == 0 test sends through the
+    generic formula, degrade as JAX's do (within 1e-4), and an invalid trace
+    gives NaN in the same places."""
+    mats = np.concatenate([_rotmats(np.float64), _not_rotations(np.float64)])
+    want = np.asarray(J.rotation_matrix_to_rot_vec(jnp.asarray(mats)))
+    got = T.rotation_matrix_to_rot_vec(_t(mats)).numpy()
+    np.testing.assert_allclose(got[:256], want[:256], atol=1e-6)
+    np.testing.assert_allclose(got[256:], want[256:], atol=1e-4)  # NaNs must coincide
+    assert np.isnan(got[-1]).all()  # trace 3.003: arccos of 1.0015
+    np.testing.assert_array_equal(got[_rotmats(np.float64).shape[0] - 1], 0.0)  # the identity
+
+
+def test_euler_deg_to_axis_angle():
+    eul = np.random.RandomState(6).uniform(-180.0, 180.0, (256, 3))
+    eul = np.concatenate([eul, [[0.0, 90.0, 0.0], [0.0, 0.0, 0.0], [180.0, 0.0, 0.0]]])
+    np.testing.assert_allclose(T.euler_deg_to_axis_angle(_t(eul)).numpy(),
+                               np.asarray(J.euler_deg_to_axis_angle(jnp.asarray(eul))),
+                               atol=1e-6)
