@@ -70,6 +70,12 @@ counter set to 0 just before it and read just after:
 * the port's bench (bench_phase: poserisk_release_tpu_torch.bench in-process
   at B = 128, two passes, strict on), whose record must carry the root
   bench.py's keys plus device, power_limit and the peak bytes;
+* the port's measurement tools (tools_phase), in-process at reduced sizes:
+  tools/profile_stages at B = 32 (K1 and K2 launch), roofline_detector's
+  three largest conv classes with bf16 and its chain mode on the first
+  stage, roofline_spin on the first stage, bench_e2e (the Predictor's wall
+  clock) on 128 synthetic frames without plots, and graft_entry.entry()
+  held against a direct call of the pose + score step;
 * the training augmentation crop (augment_check: ops/crop.crop_batch_affine
   with rotation, flip and colour scale) on the card against the CPU;
 * the experiment paths of K5 (tools/exp_fused_stage: the fused int8
@@ -100,8 +106,6 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor-core f32
 N_FRAMES, FRAME_HW, CHUNK, OUT = 128, (450, 800), 64, 224
 
 
@@ -193,6 +197,8 @@ def crop_row(name, replaces, launches, err, ms, plain_ms, n_bytes, library_ms) -
     """A crop kernel's entry of the kernels line (f32 output, B = CHUNK):
     the bound is the larger of n_bytes over the memory rate and ~10 f32
     operations per output value over the f32 rate."""
+    from poserisk_release_tpu_torch.tools.timing import FP32_FLOPS_PER_S, HBM_BYTES_PER_S
+
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = CHUNK * OUT * OUT * 3 * 10 / FP32_FLOPS_PER_S
     return {"name": name, "route": "cuda", "source": "poserisk_release_tpu_torch/csrc/crop.cu",
@@ -415,6 +421,7 @@ def k2_bound(bboxes, H: int, W: int, out_bytes: int, rect: bool = True,
     letterbox_crop_bytes over the memory rate against ~10 f32 operations
     per output value over the f32 rate."""
     from poserisk_release_tpu_torch.ops.crop import canvas_geometry
+    from poserisk_release_tpu_torch.tools.timing import FP32_FLOPS_PER_S, HBM_BYTES_PER_S
 
     CH, CW = canvas_geometry(H, W, 416, rect)[:2]
     n = n_frames if bboxes is None else bboxes.shape[0]
@@ -712,6 +719,8 @@ def skin_bound_ms(B, V, NB, P, J) -> tuple:
     per-frame inputs read once, the vertices written once; ~2 kFLOP per
     vertex-frame (shape and pose blends, the 24-joint affine blend, the
     3x4 transform) in f32 off the tensor cores."""
+    from poserisk_release_tpu_torch.tools.timing import FP32_FLOPS_PER_S, HBM_BYTES_PER_S
+
     n_bytes = 4 * (V * 3 * (NB + P) + V * J + V * 3 + B * (NB + P + 12 * J) + B * V * 3)
     n_flops = B * V * (2 * (3 * (NB + P) + 12 * J + 9) + 6)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
@@ -2357,6 +2366,123 @@ def bench_phase(device) -> int:
     return launches
 
 
+TOOLS_PROFILE_BATCH, TOOLS_PROFILE_MEASURE, TOOLS_E2E_FRAMES = 32, 8, 128
+E2E_STAGES = {"decode+track (overlapped)", "pose", "score.device", "score"}
+
+
+def _finite_positive(*values) -> bool:
+    return all(np.isfinite(v) and v > 0 for v in values)
+
+
+def tools_phase(device) -> tuple:
+    """The port's measurement tools in-process at reduced sizes, each run
+    printing its tables and one line: profile_stages at B = 32 (K1 and K2
+    must launch, every row finite and positive); roofline_detector's three
+    largest classes with bf16 and the chain mode on its first stage (23
+    shape classes); roofline_spin on its first stage, bf16 and int8;
+    bench_e2e on synthetic frames without plots (the card's machine has
+    neither opencv nor matplotlib): every stage key, fps above 0; and
+    graft_entry.entry(), whose fn equals a direct call of
+    throughput.make_pose_and_score_step on the same crops (scores exact,
+    floats within 1e-6, scores in 1-12 and 1-7). Returns K1's and K2's
+    launches over the phase."""
+    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda, fused_letterbox_crop_cuda
+    from poserisk_release_tpu_torch.tools import (
+        bench_e2e,
+        profile_stages,
+        roofline_detector,
+        roofline_spin,
+    )
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    prof = profile_stages.profile(device, TOOLS_PROFILE_BATCH, measure=TOOLS_PROFILE_MEASURE)
+    rows = prof["stages"]["rows"]
+    serving = [ms for r in prof["serving"]["rows"] for ms in r["ms"].values()]
+    print(json.dumps({"phase": "tools_profile_stages", "batch": TOOLS_PROFILE_BATCH,
+                      "rows": len(rows), "k1_launches": prof["k1_launches"],
+                      "k2_launches": prof["k2_launches"], "seconds": time.perf_counter() - t0}))
+    if not (prof["k1_launches"] > 0 and prof["k2_launches"] > 0):
+        raise AssertionError(f"profile_stages launched K1 {prof['k1_launches']} and K2 "
+                             f"{prof['k2_launches']} times")
+    if len(rows) != 9 or not _finite_positive(*(v for r in rows for v in (r["ms"], r["host_ms"])),
+                                                *serving):
+        raise AssertionError(f"profile_stages rows: {rows}, serving {serving}")
+
+    t0 = time.perf_counter()
+    n_classes = len(roofline_detector.shape_classes())
+    det = roofline_detector.classes_table(device, top=3, bf16=True)
+    chain = roofline_detector.chain_table(device, bf16=True,
+                                          stages=roofline_detector.CHAIN_STAGES[:1])
+    print(json.dumps({"phase": "tools_roofline_detector", "classes": n_classes,
+                      "rows": det["rows"], "chain": chain["rows"],
+                      "seconds": time.perf_counter() - t0}))
+    if n_classes != 23 or not _finite_positive(
+            *(r[k] for r in det["rows"] for k in ("ms_int8", "ms_bf16"))):
+        raise AssertionError(f"roofline_detector: {n_classes} classes, rows {det['rows']}")
+    if not all(np.isfinite(r[k]) for r in chain["rows"] for k in ("ms_int8", "ms_pure", "ms_bf16")):
+        raise AssertionError(f"roofline_detector chain: {chain['rows']}")
+
+    t0 = time.perf_counter()
+    spin = roofline_spin.stage_table(device, int8=True, stages=roofline_spin.STAGES[:1])
+    print(json.dumps({"phase": "tools_roofline_spin", "rows": spin["rows"],
+                      "seconds": time.perf_counter() - t0}))
+    if not all(np.isfinite(r[k]) for r in spin["rows"] for k in ("ms_bf16", "ms_int8")):
+        raise AssertionError(f"roofline_spin: {spin['rows']}")
+
+    t0 = time.perf_counter()
+    e2e = bench_e2e.main(["--synthetic", "--no_plots", "--frames", str(TOOLS_E2E_FRAMES)])
+    print(json.dumps({"phase": "tools_bench_e2e", "frames": TOOLS_E2E_FRAMES, "record": e2e,
+                      "seconds": time.perf_counter() - t0}))
+    if not (E2E_STAGES <= set(e2e["stage_timings_sec"]) and e2e["value"] > 0
+            and e2e["decoder"] == "synthetic"):
+        raise AssertionError(f"bench_e2e record: {e2e}")
+
+    t0 = time.perf_counter()
+    graft = graft_check(device)
+    graft["seconds"] = time.perf_counter() - t0
+    print(json.dumps(graft))
+    return crop_batch_cuda.launches, fused_letterbox_crop_cuda.launches
+
+
+def graft_check(device) -> dict:
+    """graft_entry.entry(): fn on its example_args and on 8 seeded crops
+    against a direct call of make_pose_and_score_step with an estimator of
+    the same (default) weights."""
+    from poserisk_release_tpu_torch import graft_entry
+    from poserisk_release_tpu_torch.body.smpl import SMPLFamily
+    from poserisk_release_tpu_torch.config import default_config
+    from poserisk_release_tpu_torch.pipeline import PoseEstimator
+    from poserisk_release_tpu_torch.throughput import (
+        default_packed_infos,
+        make_pose_and_score_step,
+    )
+
+    fn, example_args = graft_entry.entry()
+    cfg = default_config()
+    est = PoseEstimator(cfg, SMPLFamily(cfg.SPIN.smpl_model_dir), device=device)
+    step = make_pose_and_score_step(est.parents)
+    infos = [torch.as_tensor(a, device=device) for a in default_packed_infos()]
+    crops = torch.rand((8, OUT, OUT, 3), device=device,
+                       generator=torch.Generator(device=device).manual_seed(5))
+    line = {"phase": "tools_graft_entry", "example_shape": list(example_args[0].shape)}
+    for name, x in (("example_args", example_args[0]), ("seeded", crops)):
+        got = fn(x)
+        with torch.inference_mode():
+            want = step(est.model, est.smpl_params, x, *infos)
+        reba, rula = got[0].cpu().numpy(), got[1].cpu().numpy()
+        same = bool(np.array_equal(reba, want[0].cpu().numpy())
+                    and np.array_equal(rula, want[1].cpu().numpy()))
+        diff = max(float((g - w).abs().max()) for g, w in zip(got[2:], want[2:]))
+        line[name] = {"scores_equal": same, "float_max_abs_diff": diff,
+                      "reba": sorted(set(reba.tolist())), "rula": sorted(set(rula.tolist()))}
+        if not (same and diff <= 1e-6 and reba.min() >= 1 and reba.max() <= 12
+                and rula.min() >= 1 and rula.max() <= 7
+                and [tuple(t.shape) for t in got] == [(8,), (8,), (8, 24, 3), (8, 24, 3)]):
+            raise AssertionError(f"graft_entry against the direct step: {line}")
+    return line
+
+
 def augment_check(device) -> None:
     """The training augmentation crop (ops/crop.crop_batch_affine, plain
     PyTorch) on the card, on the CHUNK x 450x800 check frames with rotation,
@@ -2466,6 +2592,9 @@ def main() -> int:
     k2_launches += full_frame(device, frames, main_bboxes, q_yolo, variables, smpl, cfg, True,
                               quant_backbone=prepare_resnet50(int8_est.quant_params, device))
     k2_launches += bench_phase(device)
+    tools_k1, tools_k2 = tools_phase(device)
+    k1["launches"] += tools_k1
+    k2_launches += tools_k2
     k2["launches"] = k2_launches
     k5 = stage_check(device, frames)
     k3, k1m = window_crop_check(device, frames)

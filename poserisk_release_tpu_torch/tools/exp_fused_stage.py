@@ -26,10 +26,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from poserisk_release_tpu_torch.tools.timing import HBM_BYTES_PER_S, INT8_OPS_PER_S
+
 # stage -> (spec index of its first 1x1 conv, blocks, H, W on the rect canvas)
 STAGE_GEOM = {256: (13, 8, 36, 52), 512: (38, 8, 18, 26), 1024: (63, 4, 9, 13)}
-INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8, NVIDIA data sheet
-HBM_BYTES_PER_S = 3.35e12
 
 
 def calibrated_qparams(frames_u8: np.ndarray, device) -> Dict[str, np.ndarray]:

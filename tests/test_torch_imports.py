@@ -45,7 +45,9 @@ def test_importing_every_module_loads_no_jax():
                 "parallel.distributed", "parallel.collectives", "parallel.spmd",
                 "parallel.pipeline", "parallel.expert", "train", "train.losses", "train.optim",
                 "train.step", "train.datasets", "train.plots", "io.images", "io.keypoints",
-                "ops.sampling", "utils.profiling", "tools.data_preprocessing", "bench"):
+                "ops.sampling", "utils.profiling", "tools.data_preprocessing", "bench",
+                "tools.profile_stages", "tools.roofline_detector", "tools.roofline_spin",
+                "tools.bench_e2e", "graft_entry"):
         assert f"poserisk_release_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
