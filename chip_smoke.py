@@ -76,6 +76,20 @@ counter set to 0 just before it and read just after:
   stage, roofline_spin on the first stage, bench_e2e (the Predictor's wall
   clock) on 128 synthetic frames without plots, and graft_entry.entry()
   held against a direct call of the pose + score step;
+* the mesh dry run (dryrun_phase: graft_entry.dryrun_multichip(4), the
+  JAX repo's __graft_entry__.dryrun_multichip on 4 spawned ranks sharing
+  cuda:0 over gloo on a one-card machine): dp over frames, the score
+  histogram, the full-frame step f32 / int8 + bf16 / pose stride, K2
+  alone, tp / sp / pp / ep through the config path and a dp 2 x tp 2
+  training step, each section held against the single-process step; K1
+  and K2 launched on every rank whose sections crop;
+* the JAX repo's last tools (experiments_phase), in-process at reduced
+  sizes: exp_resample, exp_det_stride, exp_pose_stride (b512 at 128
+  frames), exp_mixed_int8, exp_spin_mixed, exp_int8_glue and
+  exp_spin_early at B = 32, one pass; 2 StreamSessions x 8 frames; the
+  streaming soak over 512 frames; the reference hot loop on 16 frames with
+  the port's step beside it; validate_real_assets with no asset, every
+  section skipped;
 * the training augmentation crop (augment_check: ops/crop.crop_batch_affine
   with rotation, flip and colour scale) on the card against the CPU;
 * the experiment paths of K5 (tools/exp_fused_stage: the fused int8
@@ -2483,6 +2497,128 @@ def graft_check(device) -> dict:
     return line
 
 
+DRYRUN_RANKS = 4
+# The dry run's sections that crop or letterbox on every rank (K1 through
+# the unfused full steps and the estimators; K2 through every full step's
+# letterbox and the resample alone); under pp only stage 0 crops.
+DRYRUN_K1 = ("full_step", "int8_step", "pose_stride_step", "tp", "sp", "ep")
+DRYRUN_K2 = ("full_step", "int8_step", "pose_stride_step", "fused_resample")
+
+
+def dryrun_phase() -> tuple:
+    """graft_entry.dryrun_multichip(DRYRUN_RANKS): every section's flag true,
+    the model axes included, and K1 and K2 launched on every rank of the
+    sections that crop (pp: one rank, its first stage). Prints the record
+    and the seconds; returns the ranks' K1 and K2 launches."""
+    from poserisk_release_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    rec = graft_entry.dryrun_multichip(DRYRUN_RANKS)
+    s = rec["sections"]
+    print(json.dumps({"phase": "dryrun_multichip", "seconds": time.perf_counter() - t0,
+                      "section_seconds": {k: v["seconds"] for k, v in s.items()},
+                      "record": rec}))
+    missing = {"tp", "sp", "pp", "ep", "train"} - set(s)
+    if rec["n_devices"] != DRYRUN_RANKS or missing or not all(v["ok"] for v in s.values()):
+        raise AssertionError(f"dryrun_multichip: missing {missing}, record {rec}")
+    silent = [(k, s[k]["k1"]) for k in DRYRUN_K1 if min(s[k]["k1"]) <= 0]
+    silent += [(k, s[k]["k2"]) for k in DRYRUN_K2 if min(s[k]["k2"]) <= 0]
+    if sum(n > 0 for n in s["pp"]["k1"]) != 1:
+        silent.append(("pp", s["pp"]["k1"]))
+    if silent:
+        raise AssertionError(f"dryrun_multichip: a rank launched no kernel: {silent}")
+    return (sum(sum(v["k1"]) for v in s.values()), sum(sum(v["k2"]) for v in s.values()))
+
+
+EXP_BATCH, EXP_BIG_BATCH, EXP_MEASURE = 32, 128, 4
+EXP_TIMING = {"reps": 3, "per_rep": 1, "warmup": 1}
+SESSIONS, SESSION_STREAM_FRAMES, SOAK_SMOKE_FRAMES, HOTLOOP_FRAMES = 2, 8, 512, 16
+
+
+def experiments_phase(device) -> tuple:
+    """The JAX repo's last tools through the port, in-process at reduced
+    sizes (EXP_BATCH frames or crops, one pass of EXP_MEASURE host calls,
+    EXP_TIMING device samples): each prints its table or JSON line and a
+    line with its seconds, and every time it reports must be finite and
+    positive. exp_int8_glue's chain on the card must equal its plain
+    version on the CPU (every int8 tensor exactly, detections within
+    exp_int8_glue.DET_RTOL). validate_real_assets runs with no asset: every
+    section skips. Returns K1's and K2's launches over the phase."""
+    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda, fused_letterbox_crop_cuda
+    from poserisk_release_tpu_torch.tools import (
+        ab,
+        bench_reference_hotloop,
+        exp_det_stride,
+        exp_int8_glue,
+        exp_mixed_int8,
+        exp_pose_stride,
+        exp_resample,
+        exp_spin_early,
+        exp_spin_mixed,
+        smoke_stream_session,
+        soak_streaming,
+        validate_real_assets,
+    )
+
+    saved, ab.TIMING = ab.TIMING, EXP_TIMING
+    reset_launch_counts()
+    b, m = EXP_BATCH, EXP_MEASURE
+    runs = [
+        ("exp_resample", lambda: exp_resample.resample_ab(device, b, 1, m)),
+        ("exp_det_stride", lambda: exp_det_stride.det_stride_ab(device, b, 1, m)),
+        ("exp_pose_stride",
+         lambda: exp_pose_stride.pose_stride_ab(device, b, EXP_BIG_BATCH, 1, m)),
+        ("exp_mixed_int8", lambda: exp_mixed_int8.mixed_int8_ab(device, b, 1, m)),
+        ("exp_spin_mixed", lambda: exp_spin_mixed.spin_mixed_ab(device, b, 1, m)),
+        ("exp_int8_glue", lambda: exp_int8_glue.int8_glue_ab(device, b, 1, m)),
+        ("exp_spin_early", lambda: exp_spin_early.spin_early_ab(device, b, m, 1)),
+        ("smoke_stream_session",
+         lambda: smoke_stream_session.run(device, SESSIONS, SESSION_STREAM_FRAMES, 4)),
+        ("soak_streaming", lambda: soak_streaming.run(device, SOAK_SMOKE_FRAMES, 180, 320,
+                                                      256, True)),
+        ("bench_reference_hotloop", lambda: bench_reference_hotloop.main(
+            ["--frames", str(HOTLOOP_FRAMES), "--with-ours"])),
+        ("validate_real_assets", lambda: validate_real_assets.main([])),
+    ]
+    t_phase = time.perf_counter()
+    try:
+        for name, fn in runs:
+            t0 = time.perf_counter()
+            rec = fn()
+            seconds = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            if name == "validate_real_assets":
+                times = [seconds]
+                ok = rec == {"smpl": None, "spin": None, "yolo": None, "video": {}}
+            elif name in ("smoke_stream_session", "soak_streaming"):
+                times = [rec["value"], rec["elapsed_sec"]]
+                ok = rec["scored" if name == "smoke_stream_session" else "frames_scored"] > 0
+            elif name == "bench_reference_hotloop":
+                times = [rec["value"], rec["ours_fps"]]
+                ok = rec["ours_device"] == torch.cuda.get_device_name(0)
+            else:
+                rows = rec["rows"] + rec.get("full_step_rows", [])
+                times = [r[k] for r in rows for k in ("ms", "host_ms", "graph_ms") if k in r]
+                ok = rec["device"] == torch.cuda.get_device_name(0)
+            if name == "exp_int8_glue":  # the chain's card branch against its plain one
+                ok = ok and rec["card_vs_plain"]["ok"]
+            print(json.dumps({"phase": "experiments_phase", "tool": name, "seconds": seconds,
+                              "k1_launches": rec.get("k1_launches"),
+                              "k2_launches": rec.get("k2_launches"),
+                              **({"card_vs_plain": rec["card_vs_plain"]}
+                                 if name == "exp_int8_glue" else {})}))
+            if not (ok and _finite_positive(*times)):
+                raise AssertionError(f"{name}: {rec}")
+    finally:
+        ab.TIMING = saved
+    k1, k2 = crop_batch_cuda.launches, fused_letterbox_crop_cuda.launches
+    print(json.dumps({"phase": "experiments_phase", "seconds": time.perf_counter() - t_phase,
+                      "k1_launches": k1, "k2_launches": k2}))
+    if k1 <= 0 or k2 <= 0:
+        raise AssertionError(f"the experiments launched K1 {k1} and K2 {k2} times")
+    return k1, k2
+
+
 def augment_check(device) -> None:
     """The training augmentation crop (ops/crop.crop_batch_affine, plain
     PyTorch) on the card, on the CHUNK x 450x800 check frames with rotation,
@@ -2595,6 +2731,9 @@ def main() -> int:
     tools_k1, tools_k2 = tools_phase(device)
     k1["launches"] += tools_k1
     k2_launches += tools_k2
+    for phase_k1, phase_k2 in (dryrun_phase(), experiments_phase(device)):
+        k1["launches"] += phase_k1
+        k2_launches += phase_k2
     k2["launches"] = k2_launches
     k5 = stage_check(device, frames)
     k3, k1m = window_crop_check(device, frames)

@@ -12,7 +12,6 @@ import os.path as osp
 from typing import List, Sequence, Tuple
 
 import numpy as np
-from scipy.stats import mode
 
 
 def post_process_scores(
@@ -67,6 +66,8 @@ def final_scores_stats(scores) -> Tuple[float, float, float, float, int]:
     # here changed that surface (caught by the executed-oracle e2e diff,
     # tests/test_reference_differential_predictor.py).
     score_max = round(scores.max(), 3)
+    from scipy.stats import mode  # 2-3 s to import: only where the stats are made
+
     score_mode = mode(scores).mode.item()
     return (score_avg, score50, score10, score_max, score_mode)
 

@@ -114,17 +114,16 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1,
     return core
 
 
-def make_pose_and_score_step(parents: Tuple[int, ...], pose_stride: int = 1,
-                             quant_backbone: Dict | None = None):
-    """Returns step(spin_model, smpl_params, crops, info_reba, info_rula) ->
-    (reba_scores, rula_scores, euler_deg, joint_cam_mm). The crops' dtype
-    and the HMR's backbone dtype select strict f32 or fast bf16; rotations
-    and scoring stay f32. With pose_stride > 1 `crops` are anchor crops and
-    every output covers crops.shape[0] * pose_stride frames."""
+def _pose_and_score(parents: Tuple[int, ...], pose_stride: int,
+                    quant_backbone: Dict | None, mesh):
+    """step(spin_model, smpl_params, crops, info_reba, info_rula) on THIS
+    data rank's crops (make_pose_core's convention); every output covers
+    the whole batch."""
     from poserisk_release_tpu_torch.scoring.reba import reba_frame_scores
     from poserisk_release_tpu_torch.scoring.rula import rula_frame_scores
 
-    core = make_pose_core(parents, pose_stride=pose_stride, quant_backbone=quant_backbone)
+    core = make_pose_core(parents, pose_stride=pose_stride, quant_backbone=quant_backbone,
+                          mesh=mesh)
 
     def step(spin_model, smpl_params, crops, info_reba, info_rula):
         euler, joint_cam, _aa = core(spin_model, smpl_params, crops)
@@ -135,10 +134,35 @@ def make_pose_and_score_step(parents: Tuple[int, ...], pose_stride: int = 1,
     return step
 
 
+def make_pose_and_score_step(parents: Tuple[int, ...], pose_stride: int = 1,
+                             quant_backbone: Dict | None = None, mesh=None):
+    """Returns step(spin_model, smpl_params, crops, info_reba, info_rula) ->
+    (reba_scores, rula_scores, euler_deg, joint_cam_mm). The crops' dtype
+    and the HMR's backbone dtype select strict f32 or fast bf16; rotations
+    and scoring stay f32. With pose_stride > 1 `crops` are anchor crops and
+    every output covers crops.shape[0] * pose_stride frames.
+
+    mesh: a DeviceMesh with a ``data`` axis (dp over frames, as JAX's jit
+    with the crops sharded over ``data``): every rank passes the whole
+    batch, computes its contiguous rows (parallel/mesh.shard_rows; the
+    batch must split evenly) and returns the whole batch's outputs."""
+    from poserisk_release_tpu_torch.parallel.mesh import shard_rows
+
+    step = _pose_and_score(parents, pose_stride, quant_backbone, mesh)
+    if mesh is None:
+        return step
+
+    def sharded(spin_model, smpl_params, crops, info_reba, info_rula):
+        return step(spin_model, smpl_params, shard_rows(crops, mesh), info_reba, info_rula)
+
+    return sharded
+
+
 def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: int = 416,
                          compute_dtype: torch.dtype = torch.float32, rect: bool = True,
                          fused_resample: bool = False, det_stride: int = 1,
-                         pose_stride: int = 1, quant_backbone: Dict | None = None):
+                         pose_stride: int = 1, quant_backbone: Dict | None = None,
+                         mesh=None):
     """The full per-frame device path, detector included.
 
     step(yolo_model, spin_model, smpl_params, frames_u8, bboxes, info_reba,
@@ -165,6 +189,15 @@ def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: in
     (pose_stride/g)-th of those; like the JAX step it takes the rect canvas
     only (rect=False raises). Without it the letterbox (K2's letterbox-only
     mode on the card) and the crop (K1) run apart.
+
+    mesh: a DeviceMesh with a ``data`` axis (JAX: the frames and boxes
+    sharded over ``data``). Every rank passes the whole batch and runs its
+    contiguous rows; the pose core all-gathers the anchors for the slerp
+    and the outputs, and det_best is gathered from each rank's
+    frames[::det_stride], so every rank returns the whole batch's outputs.
+    The rows per rank must be a multiple of det_stride and pose_stride:
+    JAX's strided slices cross shard boundaries, and here a row count that
+    is not raises ValueError.
     """
     from poserisk_release_tpu_torch.models.detector import yolo_forward
     from poserisk_release_tpu_torch.ops.crop import (
@@ -173,18 +206,31 @@ def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: in
         letterbox_device_rect,
     )
     from poserisk_release_tpu_torch.ops.resample import fused_letterbox_crop
+    from poserisk_release_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        axis_size,
+        gather_rows,
+        shard_rows,
+    )
 
     if fused_resample and not rect:
         raise ValueError("fused_resample implements the rect-canvas contract")
     if det_stride < 1 or pose_stride < 1:
         raise ValueError(f"strides must be >= 1, got det {det_stride}, pose {pose_stride}")
-    pose_step = make_pose_and_score_step(parents, pose_stride=pose_stride,
-                                         quant_backbone=quant_backbone)
+    pose_step = _pose_and_score(parents, pose_stride, quant_backbone, mesh)
+    n_data = axis_size(mesh, DATA_AXIS)
 
     def step(yolo_m, spin_model, smpl_params, frames, bboxes, info_reba, info_rula):
         if pose_stride > 1 and frames.shape[0] % pose_stride:
             raise ValueError(
                 f"batch {frames.shape[0]} is not a multiple of pose_stride {pose_stride}")
+        if n_data > 1:
+            rows = frames.shape[0] // n_data
+            if rows % det_stride or rows % pose_stride:
+                raise ValueError(
+                    f"{rows} rows per data rank are not a multiple of det_stride "
+                    f"{det_stride} and pose_stride {pose_stride}")
+            frames, bboxes = shard_rows(frames, mesh), shard_rows(bboxes, mesh)
         with torch.inference_mode():
             if fused_resample:
                 g = math.gcd(det_stride, pose_stride)
@@ -198,7 +244,7 @@ def make_full_frame_step(parents: Tuple[int, ...], yolo_model=None, img_size: in
                 crops = crop_batch(frames[::pose_stride].contiguous(), bboxes[::pose_stride],
                                    scale=1.2, out_size=224, out_dtype=compute_dtype)
             det = yolo_forward(yolo_m, letter)
-            det_best = det[..., 4].max(dim=1).values
+            det_best = gather_rows(det[..., 4].max(dim=1).values, mesh)
             reba, rula, _euler, _jc = pose_step(spin_model, smpl_params, crops,
                                                 info_reba, info_rula)
         return reba, rula, det_best

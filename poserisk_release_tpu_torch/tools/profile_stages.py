@@ -41,7 +41,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import time
 
 import torch
 
@@ -67,31 +66,14 @@ STAGE_LABELS = (
 )
 
 
-def _sum_outputs(out) -> torch.Tensor:
-    """Every tensor of `out` summed into one f32 scalar on its device."""
-    leaves = [out] if isinstance(out, torch.Tensor) else [t for t in out if t is not None]
-    acc = leaves[0].float().sum()
-    for t in leaves[1:]:
-        acc = acc + t.float().sum()
-    return acc
-
-
 def host_ms(fn, steps: int = MEASURE) -> float:
     """Host milliseconds a call: `steps` calls enqueued back to back, their
     outputs summed on the device and read back once; the faster of two
-    passes."""
-    float(_sum_outputs(fn()))
+    passes (tools/ab.host_pass_ms) after one call."""
+    from poserisk_release_tpu_torch.tools.ab import host_pass_ms, sum_outputs
 
-    def one_pass() -> float:
-        t0 = time.perf_counter()
-        outs = [fn() for _ in range(steps)]
-        acc = _sum_outputs(outs[0])
-        for o in outs[1:]:
-            acc = acc + _sum_outputs(o)
-        float(acc)
-        return time.perf_counter() - t0
-
-    return min(one_pass(), one_pass()) / steps * 1e3
+    float(sum_outputs(fn()))
+    return min(host_pass_ms(fn, steps), host_pass_ms(fn, steps))
 
 
 @contextlib.contextmanager
@@ -103,12 +85,6 @@ def tf32_off():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
-def _launches() -> tuple:
-    from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda, fused_letterbox_crop_cuda
-
-    return crop_batch_cuda.launches, fused_letterbox_crop_cuda.launches
 
 
 def build(device, batch: int):
@@ -217,12 +193,13 @@ def serving_configs(m) -> list:
 
 def profile(device, batch: int = B, measure: int = MEASURE) -> dict:
     """Both tables; prints them and returns the record."""
+    from poserisk_release_tpu_torch.tools.ab import launches
     from poserisk_release_tpu_torch.tools.timing import device_name, peak_bytes, time_ms
 
     dev_name = device_name(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    k1_0, k2_0 = _launches()
+    k1_0, k2_0 = launches()
     m = build(device, batch)
     print(f"profiling on {dev_name}, batch {batch}", flush=True)
     clock = "device" if device.type == "cuda" else "cpu"  # time_ms's clock
@@ -240,7 +217,7 @@ def profile(device, batch: int = B, measure: int = MEASURE) -> dict:
     for r in stages:
         print(f"| {r['stage']} | {r['ms']:.3f} | {r['host_ms']:.3f} | "
               f"{r['host_ms'] - r['ms']:.3f} | {r['fps']:.0f} |")
-    k1_1, k2_1 = _launches()
+    k1_1, k2_1 = launches()
     stage_record = {"tool": "profile_stages", "table": "stages", "device": dev_name,
                     "batch": batch, "measure": measure, "rows": stages,
                     "k1_launches": k1_1 - k1_0, "k2_launches": k2_1 - k2_0,
@@ -271,7 +248,7 @@ def profile(device, batch: int = B, measure: int = MEASURE) -> dict:
         serving.append({"batch": b, "ms": cols})
         print(f"| batch {b} | " + " | ".join(f"{cols[n]:.3f}" for n, *_ in configs) + " |",
               flush=True)
-    k1_2, k2_2 = _launches()
+    k1_2, k2_2 = launches()
     serving_record = {"tool": "profile_stages", "table": "serving", "device": dev_name,
                       "steps": SERVING_STEPS, "rows": serving,
                       "k1_launches": k1_2 - k1_1, "k2_launches": k2_2 - k2_1,

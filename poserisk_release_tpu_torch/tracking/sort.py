@@ -18,7 +18,6 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
-from scipy.optimize import linear_sum_assignment
 
 
 def _xyxy_to_z(bbox: np.ndarray) -> np.ndarray:
@@ -123,6 +122,8 @@ def _associate(dets: np.ndarray, preds: np.ndarray, iou_threshold: float):
             np.arange(preds.shape[0]),
         )
     iou = iou_xyxy(dets, preds)
+    from scipy.optimize import linear_sum_assignment  # ~1.4 s to import: on first use
+
     row, col = linear_sum_assignment(-iou)
     matches, unmatched_d, unmatched_t = [], [], []
     matched_d = set()

@@ -47,7 +47,12 @@ def test_importing_every_module_loads_no_jax():
                 "train.step", "train.datasets", "train.plots", "io.images", "io.keypoints",
                 "ops.sampling", "utils.profiling", "tools.data_preprocessing", "bench",
                 "tools.profile_stages", "tools.roofline_detector", "tools.roofline_spin",
-                "tools.bench_e2e", "graft_entry"):
+                "tools.bench_e2e", "graft_entry", "tools.ab", "tools.exp_resample",
+                "tools.exp_det_stride", "tools.exp_pose_stride", "tools.exp_mixed_int8",
+                "tools.exp_spin_mixed", "tools.exp_int8_glue", "tools.exp_spin_early",
+                "tools.smoke_stream_session", "tools.soak_streaming",
+                "tools.bench_reference_hotloop", "tools.reference_rules",
+                "tools.validate_real_assets"):
         assert f"poserisk_release_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
