@@ -14,6 +14,8 @@ import importlib
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 KNOBS = ("BENCH_DTYPE", "BENCH_BATCH", "BENCH_INT8", "BENCH_INT8_MIN_DS", "BENCH_Q8",
          "BENCH_SPIN_INT8", "BENCH_FUSED", "BENCH_DET_STRIDE", "BENCH_POSE_STRIDE",
          "BENCH_STRICT", "BENCH_PASSES")

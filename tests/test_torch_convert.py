@@ -21,6 +21,7 @@ from poserisk_release_tpu_torch.models import convert
 from poserisk_release_tpu_torch.models.spin import HMR, init_spin_params, load_mean_params
 from poserisk_release_tpu_torch.pipeline import load_spin_variables
 from tests.oracles.torch_hmr import randomized_torch_hmr
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

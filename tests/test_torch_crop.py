@@ -31,6 +31,7 @@ import torch
 
 from poserisk_release_tpu_torch.ops.crop import crop_batch, crop_batch_plain
 from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BBOXES = np.array(
     [

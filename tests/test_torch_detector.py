@@ -35,6 +35,7 @@ from poserisk_release_tpu_torch.models.convert import (
     yolo_params_to_state_dict,
 )
 from poserisk_release_tpu_torch.ops.crop import letterbox_device, letterbox_device_rect
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _np_tree(tree):

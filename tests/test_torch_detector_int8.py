@@ -43,6 +43,7 @@ from poserisk_release_tpu_torch.ops.crop import letterbox_device_rect
 from poserisk_release_tpu_torch.ops.qconv import QConv2d, int_conv_plain, quantize
 from tests.test_torch_detector import _frames as _smooth_frames
 from tests.test_torch_detector import calibrated, port_init  # noqa: F401 (fixtures)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CANVAS = 96
 

@@ -21,19 +21,11 @@ import torch
 
 from poserisk_release_tpu_torch import graft_entry
 from poserisk_release_tpu_torch.throughput import make_full_frame_step
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SECTIONS = ("dp_pose", "histogram", "full_step", "int8_step", "pose_stride_step",
             "stride_guard", "fused_resample")
 AXES = ("tp", "sp", "pp", "ep", "train")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread in this process, as in the ranks it spawns."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")

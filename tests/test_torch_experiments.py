@@ -53,18 +53,9 @@ from poserisk_release_tpu_torch.tools import (
     soak_streaming,
     validate_real_assets,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread for this module: its full-width models beside the
-    other test processes must not oversubscribe the host."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture

@@ -28,6 +28,7 @@ from poserisk_release_tpu_torch.models.convert import flax_to_state_dict, yolo_p
 from poserisk_release_tpu_torch.models.spin import HMR
 from poserisk_release_tpu_torch.ops.lbs import smpl_params_to_torch
 from poserisk_release_tpu_torch.throughput import default_packed_infos, make_full_frame_step
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STRIDES = [(1, 1), (4, 2), (2, 4)]
 

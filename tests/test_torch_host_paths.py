@@ -32,6 +32,7 @@ from poserisk_release_tpu_torch.tracking.mpt import MultiPersonTracker
 from tests.test_detection_stride import PixelDetector, make_reversing_clip
 from tests.test_jpeg_ingest import _textured_frames
 from tests.test_parallel_decode import _collect, _FramelessCapture, _make_video
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # -- adaptive detection stride -------------------------------------------------
 

@@ -24,6 +24,7 @@ from poserisk_release_tpu_torch.io import images, keypoints
 from poserisk_release_tpu_torch.ops.sampling import count_parameters, sample_image_feature
 from poserisk_release_tpu_torch.outputs import render
 from poserisk_release_tpu_torch.utils import profiling
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CROP_VS_JAX = 1.25e-4  # ops/crop.py: the port's crop vs the JAX resample on noise
 

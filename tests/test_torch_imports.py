@@ -20,6 +20,7 @@ from poserisk_release_tpu_torch import cli
 from poserisk_release_tpu_torch.body.smpl import SMPLFamily
 from poserisk_release_tpu_torch.config import default_config
 from poserisk_release_tpu_torch.pipeline import PoseEstimator, Predictor
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 PKG = osp.join(REPO, "poserisk_release_tpu_torch")
@@ -263,3 +264,24 @@ def test_debug_frame_and_detector_weights_raise(tmp_path, monkeypatch):
 
     pred = Predictor(debug=True, debug_frame=0, device="cpu", detector=detector.StubDetector())
     assert pred.debug_frame == 0
+
+
+def test_port_test_modules_run_on_one_torch_thread():
+    """tests/torch_threads.py pins torch to one intra-op thread for this
+    module, as for every port test file: six xdist workers share the host's
+    cores, and the suite's clock counts on it."""
+    assert torch.get_num_threads() == 1
+
+
+def test_every_port_test_file_imports_the_pin():
+    """...save tests/test_torch_pipeline.py, whose two byte checks of
+    debug/pose_log.csv hold at torch's default thread count only (the
+    docstring of tests/torch_threads.py)."""
+    here = osp.join(REPO, "tests")
+    missing = []
+    for name in sorted(os.listdir(here)):
+        if name.startswith("test_torch_") and name.endswith(".py") and name != "test_torch_pipeline.py":
+            with open(osp.join(here, name)) as f:
+                if "from tests.torch_threads import one_torch_thread" not in f.read():
+                    missing.append(name)
+    assert not missing

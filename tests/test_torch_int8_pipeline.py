@@ -51,6 +51,7 @@ from poserisk_release_tpu_torch.models.convert import (
 )
 from poserisk_release_tpu_torch.pipeline import Predictor
 from tests.test_torch_pipeline import INFO, _record
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _clip_frames():

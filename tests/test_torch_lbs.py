@@ -31,6 +31,7 @@ from poserisk_release_tpu_torch.ops.skin import (
     skin_vertices_cuda,
     skin_vertices_plain,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

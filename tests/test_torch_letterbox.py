@@ -45,6 +45,7 @@ from poserisk_release_tpu_torch.ops.resample import (
     k2_band_rows,
     k2_block_table,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BBOXES = np.array(
     [

@@ -22,6 +22,7 @@ from poserisk_release_tpu_torch.models.convert import spin_state_dict_to_flax
 from poserisk_release_tpu_torch.models.spin import init_spin_params, load_mean_params
 from poserisk_release_tpu_torch.parallel import distributed, expert, mesh, pipeline, spmd
 from poserisk_release_tpu_torch.pipeline import PoseEstimator
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

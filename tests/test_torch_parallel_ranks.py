@@ -35,6 +35,7 @@ from poserisk_release_tpu_torch.body.smpl import SMPLFamily, SMPLModel, syntheti
 from poserisk_release_tpu_torch.config import default_config
 from poserisk_release_tpu_torch.models.spin import init_spin_params, load_mean_params
 from poserisk_release_tpu_torch.parallel.distributed import run_ranks
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, HW = 8, (64, 96)
 PORT_VS_JAX = 1e-2  # deg and mm: tests/test_torch_pose.py

@@ -17,6 +17,7 @@ import torch
 
 from poserisk_release_tpu.ops import rotations as J
 from poserisk_release_tpu_torch.ops import rotations as T
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.smoke
 

@@ -30,6 +30,7 @@ from tests.test_scoring import (
     NONZERO_REBA,
     NONZERO_RULA,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ENGINES = {"REBA": (JaxREBAScorer, REBAScorer), "RULA": (JaxRULAScorer, RULAScorer)}
 

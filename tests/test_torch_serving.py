@@ -37,6 +37,7 @@ from poserisk_release_tpu_torch.models.convert import flax_to_state_dict, resnet
 from poserisk_release_tpu_torch.scoring.reba import REBAScorer
 from poserisk_release_tpu_torch.scoring.rula import RULAScorer
 from poserisk_release_tpu_torch.serving import PoseScoringServer, ScoredPose, StreamSession
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 with open(osp.join(osp.dirname(_pkg.__file__), "default_information.json")) as _f:
     INFO = json.load(_f)

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from poserisk_release_tpu_torch.models.spin import HMR
 from poserisk_release_tpu_torch.parallel import mesh as pmesh
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 W = 5  # columns: the column padding stays with the layer, so a few do
 

@@ -18,6 +18,7 @@ from poserisk_release_tpu.models.spin import HMR as JaxHMR
 from poserisk_release_tpu.models.spin import init_spin_params, load_mean_params
 from poserisk_release_tpu_torch.models.convert import flax_to_state_dict
 from poserisk_release_tpu_torch.models.spin import HMR
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

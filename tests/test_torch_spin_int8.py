@@ -45,6 +45,7 @@ from poserisk_release_tpu_torch.models.spin import (
     quantize_spin_backbone,
 )
 from poserisk_release_tpu_torch.pipeline import PoseEstimator
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _np_tree(tree):

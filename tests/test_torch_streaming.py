@@ -44,6 +44,7 @@ from poserisk_release_tpu_torch.io.video import write_video
 from poserisk_release_tpu_torch.models.convert import flax_to_state_dict, spin_state_dict_to_flax
 from poserisk_release_tpu_torch.models.spin import init_spin_params, load_mean_params
 from poserisk_release_tpu_torch.streaming import StreamingScorer, StreamResult
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WINDOW = 16
 OUTPUT_FILES = ("reba_result.txt", "rula_result.txt", "stream_summary.json")

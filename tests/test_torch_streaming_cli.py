@@ -47,6 +47,7 @@ from tests.test_torch_streaming import (  # noqa: F401  (clips, weights: fixture
     two_survivor_dets,
     weights,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 # The port held against itself crops 64x64: what these tests check does not

@@ -42,6 +42,7 @@ from poserisk_release_tpu_torch.tools import (
     roofline_spin,
     timing,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CPU = torch.device("cpu")

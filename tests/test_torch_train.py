@@ -33,6 +33,7 @@ from poserisk_release_tpu_torch.models.spin import init_spin_params, load_mean_p
 from poserisk_release_tpu_torch.train import datasets, losses, optim
 from poserisk_release_tpu_torch.train.step import TrainState
 from tests.test_torch_train_ranks import STEP_LR, assert_update_matches
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FROZEN = ("running_mean", "running_var", "num_batches_tracked")
 

@@ -33,6 +33,7 @@ from poserisk_release_tpu_torch.body.smpl import SMPLFamily
 from poserisk_release_tpu_torch.config import default_config
 from poserisk_release_tpu_torch.models.spin import init_spin_params, load_mean_params
 from poserisk_release_tpu_torch.parallel.distributed import run_ranks
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LAYOUTS = {"dp2_tp2": {"data": 2, "model": 2}, "dp2": {"data": 2, "stage": 2},
            "dp4": {"data": 4}}

@@ -37,6 +37,7 @@ from poserisk_release_tpu_torch.ops.resample import (
     crop_batch_multi_cuda,
     crop_batch_windowed_cuda,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIT_BOXES = np.array([[400.0, 225.0, 200.0, 380.0], [60.0, 200.0, 180.0, 300.0],
                       [770.0, 225.0, 190.0, 400.0], [420.0, 100.0, 150.0, 150.0]], np.float32)

@@ -30,6 +30,7 @@ from poserisk_release_tpu_torch.ops.yolo_stage import (
     pack_yolo_stage,
 )
 from poserisk_release_tpu_torch.tools.exp_fused_stage import STAGE_GEOM, stage_bound, stage_floor
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STAGE_START, STAGE_BLOCKS = 13, 8
 
