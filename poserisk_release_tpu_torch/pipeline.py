@@ -76,6 +76,7 @@ from poserisk_release_tpu_torch.outputs.writers import (
 )
 from poserisk_release_tpu_torch.scoring.reba import REBAScorer
 from poserisk_release_tpu_torch.scoring.rula import RULAScorer
+from poserisk_release_tpu_torch.staging import HostRows, StagingRing, chunk_row_ids
 from poserisk_release_tpu_torch.throughput import make_pose_core
 from poserisk_release_tpu_torch.tracking.mpt import (
     MultiPersonTracker,
@@ -143,6 +144,15 @@ def _gather_rows(x, ids: np.ndarray):
     if isinstance(x, torch.Tensor):
         return x[torch.as_tensor(ids, dtype=torch.long, device=x.device)]
     return x[ids]
+
+
+def _chunk_rows(x, ids: np.ndarray):
+    """A chunk's rows of x: gathered on x's own device for a tensor; for a
+    host array the rows still to gather, which _run_chunked gathers
+    straight into its staging ring on the card."""
+    if isinstance(x, torch.Tensor):
+        return _gather_rows(x, ids)
+    return HostRows(x, np.asarray(ids))
 
 
 def _mesh_axes(cfg: Config, mesh) -> tuple:
@@ -300,6 +310,8 @@ class PoseEstimator:
                                          pmesh.axis_size(mesh, spmd.SPATIAL_AXIS),
                                          pmesh.axis_index(mesh, spmd.SPATIAL_AXIS))
         self._build_cores()
+        self._ring = None  # the chunks' pinned staging, made on first use
+        self._direct_chunks = 0
 
     def _build_cores(self) -> None:
         """The pose cores on the current backbone: `_pose_core` reads whole
@@ -425,9 +437,10 @@ class PoseEstimator:
         if crops.shape[0]:
             self._ensure_spin_quantized(torch.as_tensor(crops[:8]))
         stride = self._pose_stride
+        n = crops.shape[0]
         return self._run_chunked(
-            crops.shape[0],
-            lambda start, size: (crops[start : start + size : stride],),
+            n,
+            lambda start, size: (HostRows(crops, np.arange(start, min(start + size, n), stride)),),
             self._pose_step,
             chunk,
         )
@@ -439,7 +452,10 @@ class PoseEstimator:
         angles/joints come back. Under pose_stride > 1 only every Nth
         tracked frame is uploaded. frames_rgb is a host array, or a tensor
         already on the device, whose frames are then gathered and padded
-        there."""
+        there. On the card a host array's frames (and every chunk's boxes)
+        are gathered straight into a pinned slot and uploaded on a copy
+        stream (_run_chunked); a device tensor's chunks keep the unstaged
+        path."""
         frame_ids = np.asarray(frame_ids)
         bboxes = np.asarray(bboxes, np.float32)
         if self.spin_needs_calibration and len(frame_ids):
@@ -450,11 +466,12 @@ class PoseEstimator:
                 scale=float(self.cfg.DATASET.bbox_scale),
                 out_size=int(self.cfg.MODEL.input_shape[0])))
         stride = self._pose_stride
+        n = len(frame_ids)
         return self._run_chunked(
-            len(frame_ids),
+            n,
             lambda start, size: (
-                _gather_rows(frames_rgb, frame_ids[start : start + size : stride]),
-                bboxes[start : start + size : stride],
+                _chunk_rows(frames_rgb, frame_ids[start : start + size : stride]),
+                HostRows(bboxes, np.arange(start, min(start + size, n), stride)),
             ),
             self._pose_step_from_frames,
             chunk,
@@ -473,7 +490,30 @@ class PoseEstimator:
             q *= int(self.cfg.PARALLEL.stage_microbatches)
         return ((chunk + q - 1) // q) * q
 
+    def upload_stats(self) -> Dict[str, int]:
+        """How the chunks went up: `staged_chunks` through the pinned ring
+        (with `staged_bytes`, and `slot_waits`, the times the host waited
+        for a slot's last copy), `direct_chunks` on the unstaged path."""
+        ring = self._ring
+        return {"staged_chunks": ring.chunks if ring else 0,
+                "direct_chunks": self._direct_chunks,
+                "staged_bytes": ring.bytes if ring else 0,
+                "slot_waits": ring.waits if ring else 0}
+
     def _run_chunked(self, num_items: int, host_chunk, step_fn, chunk: int = 0):
+        """Runs step_fn over production chunks of num_items; host_chunk(start,
+        size) gives a chunk's parts: HostRows of host arrays, or tensors.
+
+        A chunk whose parts are all HostRows, on a CUDA device that crops,
+        is staged (staging.StagingRing): its rows, edge-padded and cut to
+        this data rank's share, are gathered into a pinned slot and copied
+        on the ring's copy stream, and the compute stream waits on that
+        copy's event before the step. Any other chunk (a tensor part such as
+        the streaming scorer's shared device window, the CPU, a later pp
+        stage) is gathered, padded and sharded as it is and moved with
+        .to(device). Each chunk is staged before the fetch of the oldest
+        chunk in flight, whose .cpu() syncs the compute stream, so the
+        gather and copy overlap the chunk the device is running."""
         chunk = self.production_chunk(chunk)
         if num_items == 0:
             empty = np.zeros((0, 24, 3), np.float32)
@@ -481,18 +521,28 @@ class PoseEstimator:
 
         from poserisk_release_tpu_torch.parallel.mesh import pad_to_multiple, shard_rows
 
+        rows = chunk // self._pose_stride
+
         def upload(start: int):
             # n_valid counts FRAMES (the step's output rows); under a pose
-            # stride the uploaded parts are the anchor subsample. A tensor
-            # part is padded on its own device; a host part goes up padded,
-            # only this data rank's rows of it (none on a later pp stage).
+            # stride the uploaded parts are the anchor subsample.
             n_valid = min(chunk, num_items - start)
+            parts = host_chunk(start, chunk)
+            if (self._crops_here and self.device.type == "cuda"
+                    and all(isinstance(p, HostRows) for p in parts)):
+                if self._ring is None:
+                    self._ring = StagingRing(self.device)
+                return self._ring.upload([HostRows(p.source, chunk_row_ids(p.ids, rows, self.mesh))
+                                          for p in parts]), n_valid
+            # A tensor part is padded on its own device; a host part goes up
+            # padded, only this data rank's rows of it (none on a later pp
+            # stage).
+            self._direct_chunks += 1
             batches = []
-            for part in host_chunk(start, chunk):
-                if not isinstance(part, torch.Tensor):
-                    part = torch.from_numpy(np.ascontiguousarray(part))
-                part = shard_rows(pad_to_multiple(part, chunk // self._pose_stride)[0],
-                                  self.mesh)
+            for part in parts:
+                if isinstance(part, HostRows):
+                    part = torch.from_numpy(part.gather())
+                part = shard_rows(pad_to_multiple(part, rows)[0], self.mesh)
                 batches.append(part.to(self.device, non_blocking=True)
                                if self._crops_here else part)
             return batches, n_valid
@@ -525,14 +575,15 @@ class PoseEstimator:
 
         # Bounded pipelining: the host enqueues up to MAX_IN_FLIGHT chunks
         # ahead of the fetches, so the device overlaps chunks while at most
-        # that many chunks' uint8 frames are resident at once.
+        # that many chunks' uint8 frames, and the one staged next, are
+        # resident at once.
         MAX_IN_FLIGHT = 4
         pending = []
         for start in range(0, num_items, chunk):
+            batches, n_valid = upload(start)
             if len(pending) >= MAX_IN_FLIGHT:
                 out, s, nv = pending.pop(0)
                 fetch(out, s, nv, len(eulers))
-            batches, n_valid = upload(start)
             with torch.inference_mode():
                 pending.append((step_fn(*batches), start, n_valid))
             del batches
