@@ -13,19 +13,25 @@ concurrently from many clients.
     captured ``torch.cuda.CUDAGraph`` of crop (kernel K1) -> HMR ->
     rotations -> SMPL joints -> REBA/RULA over static input buffers
     ((b, H, W, 3) uint8 frames, (b, 4) f32 boxes) and static outputs. A
-    batch is copied into the inputs from pinned host buffers, the graph is
-    replayed, and the outputs are copied back to the host before the next
-    replay. All buckets of a build share one memory pool. A bucket is
-    captured on its first batch (warm-up captures every bucket), after a
-    warm-up of the step on the server's own stream; capture runs in
+    batch's real rows are copied into the inputs from the pinned slot its
+    requests were written into, the pad rows are filled on the device, the
+    graph is replayed, and the outputs are copied back to the host before
+    the next replay. All buckets of a build share one memory pool. A
+    bucket is captured on its first batch (warm-up captures every bucket),
+    after a warm-up of the step on the server's own stream; capture runs in
     ``thread_local`` error mode on that stream, so other threads' work on
     the card (a StreamSession's detector) neither breaks nor joins it. A
     failed capture or replay raises: there is no eager fallback on the
     card. On the CPU, which the caller must name, each batch runs the same
     step eagerly.
-  * **Deadline micro-batching.** A dispatcher thread drains the request
-    queue, waiting at most ``max_delay_ms`` after the first request (or
-    until the largest bucket fills) before it runs a batch.
+  * **Deadline micro-batching into staging slots.** ``submit`` writes each
+    request's frame and box once, into the next row of the open slot: host
+    rows of the largest bucket, pinned on CUDA. A dispatcher thread takes
+    the oldest slot once it holds a request, waits at most ``max_delay_ms``
+    more (or until the slot fills), then closes it (later requests open
+    the next slot), waits for its rows' copies and runs its filled rows as
+    one batch. Two slots serve a steady load: one fills while the other's
+    batch runs; a burst that fills both takes a further slot, never a wait.
 
 Detection and tracking are per-stream state (a SORT filter per camera), so
 they live in ``StreamSession``: one session per camera owns its detector,
@@ -42,9 +48,10 @@ the last request as run_from_frames pads its last chunk.
 
 Under a mesh (cfg.PARALLEL's data, model, stage, expert and spatial axes
 over torch.distributed, parallel/), every rank builds the server; rank 0 owns
-the request queue and the dispatcher and broadcasts each padded bucket
-batch to a worker loop on the other ranks, which stops on a sentinel at
-``close()``. Buckets round up to the mesh quantum (the data axis, times
+the staging slots and the dispatcher and broadcasts each batch's bucket
+and real rows to a worker loop on the other ranks (every rank edge-pads
+its own share on its device), which stops on a sentinel at ``close()``.
+Buckets round up to the mesh quantum (the data axis, times
 stage_microbatches under pp), and each data rank scores its rows of a
 batch, as the estimator splits a chunk; the results are all-gathered.
 What runs where: with a data axis alone, a bucket's CUDA graph covers the
@@ -62,7 +69,6 @@ crop rows, so the spatial ranks compute their data rows as replicas.
 
 from __future__ import annotations
 
-import queue
 import threading
 import time
 from collections import deque
@@ -102,21 +108,54 @@ class ScoredPose:
 
 @dataclass(frozen=True)
 class _Request:
-    frame: np.ndarray
-    bbox: np.ndarray
     future: Future
     t_submit: float
+
+
+class _Slot:
+    """Host rows of the largest bucket that submit() writes requests into:
+    (rows, H, W, 3) uint8 frames and (rows, 4) f32 boxes, pinned on CUDA.
+    ``requests`` holds each reserved row's request in row order; ``copied``
+    counts the reserved rows whose bytes are written; ``closed`` is set
+    once the dispatcher has taken the slot."""
+
+    def __init__(self, rows: int, frame_hw: Tuple[int, int], pin: bool):
+        self.frames = torch.empty((rows, *frame_hw, 3), dtype=torch.uint8, pin_memory=pin)
+        self.boxes = torch.empty((rows, 4), dtype=torch.float32, pin_memory=pin)
+        self.frames_np, self.boxes_np = self.frames.numpy(), self.boxes.numpy()
+        self.requests: List[_Request] = []
+        self.copied = 0
+        self.closed = False
+
+
+def _host(x, dtype) -> torch.Tensor:
+    """A batch's host rows as a CPU tensor: a slot's rows as they are, a
+    caller's array without a copy where its layout allows."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x, dtype))
+
+
+def _fill_rows(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """dst[:m] = the m host rows src, then every later row of dst = its row
+    m - 1, on dst's device: a bucket's edge pad without a host copy."""
+    m = src.shape[0]
+    dst[:m].copy_(src, non_blocking=True)
+    if m < dst.shape[0]:
+        dst[m:].copy_(dst[m - 1])
+    return dst
 
 
 class _BucketGraph:
     """One bucket's CUDA graph of the step, captured on its first run.
 
     Owns the static device inputs and the graph's static outputs; `run`
-    copies a batch from the server's pinned staging buffers into the
-    inputs, replays, and returns host copies of the outputs. A replay
-    launches every kernel the capture recorded, so it adds the crop
-    kernel's recorded launches to ops/resample.crop_batch_cuda.launches
-    (the wrapper counts a recording apart, in `.captured`)."""
+    copies a batch's real host rows (a pinned slot's, on the dispatcher's
+    path) into the inputs, edge-pads the rest on the device, replays, and
+    returns host copies of the outputs. A replay launches every kernel the
+    capture recorded, so it adds the crop kernel's recorded launches to
+    ops/resample.crop_batch_cuda.launches (the wrapper counts a recording
+    apart, in `.captured`)."""
 
     def __init__(self, step, bucket: int, frame_hw: Tuple[int, int], device: torch.device,
                  pool, stream: torch.cuda.Stream):
@@ -159,8 +198,8 @@ class _BucketGraph:
         if self.graph is None:
             self.capture()
         with torch.cuda.stream(self.stream):
-            self.frames.copy_(host_frames, non_blocking=True)
-            self.boxes.copy_(host_boxes, non_blocking=True)
+            _fill_rows(self.frames, host_frames)
+            _fill_rows(self.boxes, host_boxes)
             self.graph.replay()
             for host, out in zip(self.host_out, self.outputs):
                 host.copy_(out, non_blocking=True)
@@ -273,17 +312,18 @@ class PoseScoringServer:
         self.graph_replays = 0
         if self._cuda:
             self._stream = torch.cuda.Stream(self.device)
-            # Pinned host staging per bucket: the dispatcher stacks a padded
-            # batch straight into it, and the upload is an async copy.
-            self._staging = {
-                b: (torch.empty((b, *self.frame_hw, 3), dtype=torch.uint8, pin_memory=True),
-                    torch.empty((b, 4), dtype=torch.float32, pin_memory=True))
-                for b in self.batch_sizes}
         self._steps = self._build_steps()
 
-        self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._closed = threading.Event()
         self._lock = threading.Lock()
+        # Staging slots, guarded by _lock: _pending holds the slots with
+        # reserved rows that no batch has taken yet, oldest first (the last
+        # one is open while it has a free row); _free the idle ones.
+        self._cv = threading.Condition(self._lock)
+        self._rows = self.batch_sizes[-1]
+        self._pending: "deque[_Slot]" = deque()
+        self._free: List[_Slot] = []
+        self._n_staged = self._slot_grows = self._copy_waits = 0
         # Bounded metric windows: percentiles and fills cover the most
         # recent requests while the totals stay exact counters.
         self._latencies: "deque[float]" = deque(maxlen=4096)
@@ -299,6 +339,7 @@ class PoseScoringServer:
                                             name="poserisk-serving-worker")
             self._thread.start()
             return
+        self._free = [self._new_slot() for _ in range(2)]
         if warm:
             self._warmup()
         self._thread = threading.Thread(target=self._dispatch_loop,
@@ -359,88 +400,89 @@ class PoseScoringServer:
             self._run_bucket(np.repeat(frames, b, 0), np.repeat(boxes, b, 0),
                              allow_calibration=False)
 
-    def _batch_buffers(self, bucket: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Where the dispatcher stacks a padded batch: the bucket's pinned
-        staging on the card, fresh arrays elsewhere."""
-        if self._cuda:
-            frames, boxes = self._staging[bucket]
-            return frames.numpy(), boxes.numpy()
-        return (np.empty((bucket, *self.frame_hw, 3), np.uint8),
-                np.empty((bucket, 4), np.float32))
+    def _new_slot(self) -> _Slot:
+        return _Slot(self._rows, self.frame_hw, pin=self._cuda)
 
-    def _run_bucket(self, frames: np.ndarray, bboxes: np.ndarray,
-                    allow_calibration: bool = True):
-        """One padded batch through its bucket: host (reba, rula, euler,
-        joint_cam) arrays. Under a mesh rank 0 first broadcasts the batch to
-        the other ranks' worker loops."""
+    def _bucket(self, n: int) -> int:
+        """The smallest bucket that holds n rows."""
+        for b in self.batch_sizes:
+            if b >= n:
+                return b
+        raise ValueError(f"{n} rows exceed the largest bucket, {self.batch_sizes[-1]}")
+
+    def _run_bucket(self, frames, bboxes, allow_calibration: bool = True):
+        """n real rows (host arrays, or a slot's rows) through the smallest
+        bucket that holds them, edge-padded with row n - 1 on the device:
+        host (reba, rula, euler, joint_cam) arrays of the bucket's rows.
+        Under a mesh rank 0 first broadcasts the rows to the other ranks'
+        worker loops."""
+        bucket = self._bucket(len(frames))
         if self._mesh is not None:
-            self._broadcast_batch(frames, bboxes, allow_calibration)
-        return self._run_bucket_here(frames, bboxes, allow_calibration)
+            self._broadcast_batch(frames, bboxes, bucket, allow_calibration)
+        return self._run_bucket_here(frames, bboxes, bucket, allow_calibration)
 
     # -- the mesh: rank 0 -> worker loops ------------------------------------
-    def _broadcast_batch(self, frames, bboxes, allow_calibration: bool) -> None:
+    def _broadcast_batch(self, frames, bboxes, bucket: int, allow_calibration: bool) -> None:
         """Rank 0's half of one batch (frames None: the close() sentinel):
-        a header (bucket, allow_calibration), then frames and boxes."""
+        a header (bucket, allow_calibration, real rows), then the real
+        rows' frames and boxes; every rank pads its own share."""
         from poserisk_release_tpu_torch.parallel.collectives import broadcast
 
-        bucket = 0 if frames is None else frames.shape[0]
-        broadcast(torch.tensor([bucket, int(allow_calibration)], dtype=torch.int64), 0)
-        if bucket:
-            broadcast(torch.from_numpy(np.ascontiguousarray(frames)), 0)
-            broadcast(torch.from_numpy(np.ascontiguousarray(bboxes, np.float32)), 0)
+        n = 0 if frames is None else len(frames)
+        broadcast(torch.tensor([bucket, int(allow_calibration), n], dtype=torch.int64), 0)
+        if n:
+            broadcast(_host(frames, np.uint8), 0)
+            broadcast(_host(bboxes, np.float32), 0)
 
     def _worker_loop(self) -> None:
         from poserisk_release_tpu_torch.parallel.collectives import broadcast
 
         try:
             while True:
-                bucket, allow = broadcast(torch.zeros(2, dtype=torch.int64), 0).tolist()
-                if not bucket:
+                bucket, allow, n = broadcast(torch.zeros(3, dtype=torch.int64), 0).tolist()
+                if not n:
                     return
-                frames = broadcast(torch.empty((bucket, *self.frame_hw, 3), dtype=torch.uint8), 0)
-                boxes = broadcast(torch.empty((bucket, 4), dtype=torch.float32), 0)
-                self._run_bucket_here(frames.numpy(), boxes.numpy(), bool(allow))
+                frames = broadcast(torch.empty((n, *self.frame_hw, 3), dtype=torch.uint8), 0)
+                boxes = broadcast(torch.empty((n, 4), dtype=torch.float32), 0)
+                self._run_bucket_here(frames, boxes, bucket, bool(allow))
         except BaseException as exc:  # surfaced by close(); the run cannot go on
             self._worker_error = exc
             raise
 
-    def _run_bucket_here(self, frames: np.ndarray, bboxes: np.ndarray,
-                         allow_calibration: bool):
+    def _run_bucket_here(self, frames, bboxes, bucket: int, allow_calibration: bool):
         """This rank's part of one batch (every rank under a mesh): the
-        whole batch's host outputs."""
+        whole bucket's host outputs from its n real host rows."""
+        from poserisk_release_tpu_torch.parallel.mesh import gather_rows, shard_rows
+
+        frames, bboxes = _host(frames, np.uint8), _host(bboxes, np.float32)
+        # The padded batch's row ids (the edge pad repeats row n - 1), cut
+        # to this data rank's share: it uploads the real rows in `rows` and
+        # pads the rest on the device.
+        ids = shard_rows(np.minimum(np.arange(bucket), len(frames) - 1), self._mesh)
+        rows = slice(int(ids[0]), int(ids[-1]) + 1)
         if allow_calibration and self.estimator.spin_needs_calibration:
-            # The first real batch calibrates the int8 backbone, as
-            # run_from_frames does; the quantized core replaces the f32 one,
-            # so the bucket graphs are released and captured anew, once.
+            # The first real batch calibrates the int8 backbone on the
+            # padded batch's first 8 rows, as run_from_frames does; the
+            # quantized core replaces the f32 one, so the bucket graphs are
+            # released and captured anew, once.
+            first = torch.from_numpy(np.minimum(np.arange(min(8, bucket)), len(frames) - 1))
             self.estimator._ensure_spin_quantized(crop_batch(
-                torch.as_tensor(frames[:8], device=self.device),
-                torch.as_tensor(bboxes[:8], dtype=torch.float32, device=self.device),
+                frames[first].to(self.device), bboxes[first].to(self.device),
                 scale=float(self.cfg.DATASET.bbox_scale),
                 out_size=int(self.cfg.MODEL.input_shape[0])))
             self._release_steps()
             self._steps = self._build_steps()
-        from poserisk_release_tpu_torch.parallel.mesh import gather_rows, shard_rows
-
-        bucket = frames.shape[0]
         step = self._steps[bucket]
         if isinstance(step, _BucketGraph):
-            host_frames, host_boxes = self._staging[bucket]
-            # The dispatcher stacks into the staging itself; other callers'
-            # arrays are copied in.
-            if not np.may_share_memory(frames, host_frames.numpy()):
-                np.copyto(host_frames.numpy(), frames)
-            if not np.may_share_memory(bboxes, host_boxes.numpy()):
-                np.copyto(host_boxes.numpy(), bboxes)
             with torch.cuda.device(self.device):
-                outs = step.run(shard_rows(host_frames, self._mesh),
-                                shard_rows(host_boxes, self._mesh))
+                outs = step.run(frames[rows], bboxes[rows])
             self.graph_replays += 1
         else:
+            inputs = [_fill_rows(torch.empty((len(ids), *x.shape[1:]), dtype=x.dtype,
+                                             device=self.device), x[rows])
+                      for x in (frames, bboxes)]
             with torch.inference_mode():
-                outs = step(shard_rows(torch.from_numpy(np.ascontiguousarray(frames)),
-                                       self._mesh).to(self.device),
-                            shard_rows(torch.from_numpy(np.ascontiguousarray(bboxes)),
-                                       self._mesh).to(self.device))
+                outs = step(*inputs)
             outs = tuple(o.cpu().numpy() for o in outs)
         if self._mesh is None or self._model_axes:
             return outs  # the estimator's step gathered the rows already
@@ -455,14 +497,20 @@ class PoseScoringServer:
 
     # -- request path --------------------------------------------------------
     def submit(self, frame: np.ndarray, bbox: np.ndarray) -> "Future[ScoredPose]":
-        """Enqueue one request; returns a Future resolving to ScoredPose.
+        """Stage one request; returns a Future resolving to ScoredPose.
 
         frame: (H, W, 3) uint8 RGB matching frame_hw. bbox: (4,) squared
-        cxcywh in frame pixels (tracking.mpt.squared_cxcywh convention).
+        cxcywh in frame pixels (tracking.mpt.squared_cxcywh convention);
+        a wrong shape or dtype raises ValueError before anything is staged.
 
-        submit() owns its inputs from the moment it returns: the frame and
-        bbox are copied at enqueue, so a caller may reuse its capture buffer
-        at once."""
+        The frame and bbox are copied once, into the next row of the open
+        staging slot (pinned on CUDA), and the batch is uploaded from that
+        row: submit() owns its inputs from the moment it returns, so a
+        caller may reuse its capture buffer at once. The row is reserved
+        under the server's lock and copied outside it, so threads submitting
+        at once copy in parallel. submit() never waits on the device and
+        never drops a request: with every slot held, it takes a further one
+        (stats()["slot_grows"])."""
         if self._rank != 0:
             raise RuntimeError("requests go to rank 0's server; this rank runs a worker loop")
         if self._closed.is_set():
@@ -475,14 +523,13 @@ class PoseScoringServer:
                 f"with frame_hw={frame.shape[:2]}")
         if frame.dtype != np.uint8:
             raise ValueError(f"frame dtype {frame.dtype} != uint8")
-        frame = np.array(frame, copy=True)
-        bbox = np.array(np.asarray(bbox, np.float32).reshape(4), copy=True)
+        bbox = np.asarray(bbox, np.float32).reshape(4)
         fut: Future = Future()
-        self._queue.put(_Request(frame, bbox, fut, time.perf_counter()))
+        self._stage(_Request(fut, time.perf_counter()), frame, bbox)
         if self._closed.is_set() and not fut.done():
             # close() can win the race between the entry check above and the
-            # put: its drain has already run, so nothing would ever resolve
-            # this future.
+            # staging: its drain has already run, so nothing would ever
+            # resolve this future.
             try:
                 fut.set_exception(RuntimeError("server is closed"))
             except InvalidStateError:
@@ -494,41 +541,77 @@ class PoseScoringServer:
         """Blocking submit()."""
         return self.submit(frame, bbox).result(timeout)
 
-    # -- dispatcher -----------------------------------------------------------
-    def _collect_batch(self) -> List[_Request]:
-        """Block for the first request, then coalesce until the deadline or
-        the largest bucket fills."""
+    def _stage(self, request: _Request, frame: np.ndarray, bbox: np.ndarray) -> None:
+        """Reserves the open slot's next row for the request (opening a
+        slot when none has a free row: an idle one, else a new one), then
+        copies the frame and box into it outside the lock."""
+        spare = None
+        while True:
+            with self._cv:
+                if spare is not None:
+                    self._free.append(spare)
+                    self._slot_grows += 1
+                if not self._pending or len(self._pending[-1].requests) == self._rows:
+                    if self._free:
+                        self._pending.append(self._free.pop())
+                if self._pending and len(self._pending[-1].requests) < self._rows:
+                    slot = self._pending[-1]
+                    row = len(slot.requests)
+                    slot.requests.append(request)
+                    if row in (0, self._rows - 1):  # a slot to take, a full slot
+                        self._cv.notify_all()
+                    break
+            # Every slot is held: page-locking a new one takes tens of ms
+            # on the card, so it runs outside the lock and the dispatcher
+            # and other submits go on meanwhile.
+            spare = self._new_slot()
         try:
-            first = self._queue.get(timeout=0.05)
-        except queue.Empty:
-            return []
-        batch = [first]
-        cap = self.batch_sizes[-1]
-        deadline = time.perf_counter() + self.max_delay_s
-        while len(batch) < cap:
-            remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
-            try:
-                batch.append(self._queue.get(timeout=remaining))
-            except queue.Empty:
-                break
-        return batch
+            slot.frames_np[row] = frame
+            slot.boxes_np[row] = bbox
+        finally:
+            with self._cv:
+                slot.copied += 1
+                self._n_staged += 1
+                if slot.closed and slot.copied == len(slot.requests):
+                    self._cv.notify_all()
+
+    # -- dispatcher -----------------------------------------------------------
+    def _collect_slot(self) -> Optional[_Slot]:
+        """Block for the first request, then coalesce until the deadline or
+        the slot's rows (the largest bucket) fill. The slot then leaves
+        _pending, so later requests open another, and is returned once
+        every row reserved in it is written."""
+        with self._cv:
+            if not self._cv.wait_for(lambda: self._pending, timeout=0.05):
+                return None
+            slot = self._pending[0]
+            self._cv.wait_for(lambda: len(slot.requests) == self._rows,
+                              timeout=self.max_delay_s)
+            self._pending.popleft()
+            slot.closed = True
+            if slot.copied < len(slot.requests):
+                self._copy_waits += 1
+                self._cv.wait_for(lambda: slot.copied == len(slot.requests))
+        return slot
 
     def _dispatch_loop(self) -> None:
         while not self._closed.is_set():
-            batch = self._collect_batch()
-            if not batch:
+            slot = self._collect_slot()
+            if slot is None:
                 continue
+            batch = slot.requests
             try:
                 n = len(batch)
-                bucket = next(b for b in self.batch_sizes if b >= n)
-                frames, boxes = self._batch_buffers(bucket)
-                np.stack([r.frame for r in batch] + [batch[-1].frame] * (bucket - n),
-                         out=frames)
-                np.stack([r.bbox for r in batch] + [batch[-1].bbox] * (bucket - n),
-                         out=boxes)
-                reba, rula, euler, joint_cam = self._run_bucket(frames, boxes)
+                try:
+                    reba, rula, euler, joint_cam = self._run_bucket(slot.frames[:n],
+                                                                    slot.boxes[:n])
+                finally:
+                    # The run synchronised, so its upload from the slot is
+                    # done: the slot takes new requests.
+                    with self._cv:
+                        slot.requests, slot.copied, slot.closed = [], 0, False
+                        self._free.append(slot)
+                bucket = self._bucket(n)
                 now = time.perf_counter()
                 with self._lock:
                     self._n_requests += n
@@ -549,18 +632,26 @@ class PoseScoringServer:
 
     # -- lifecycle / metrics ---------------------------------------------------
     def stats(self) -> Dict:
-        """Serving counters: exact request/batch totals, plus per-batch
-        (n_real, bucket) fills and submit->result latency percentiles
-        (seconds) over the most recent 4096-entry window."""
+        """Serving counters: exact request/batch totals (``requests``,
+        ``batches``), requests staged and not yet in a batch
+        (``queue_depth``), per-batch (n_real, bucket) fills (``batch_fill``)
+        and submit->result latency percentiles (seconds) over the most
+        recent 4096-entry window. Staging: ``staged_requests`` counts the
+        requests written into a slot row at submit, ``slot_grows`` the
+        slots allocated beyond the first two, ``copy_waits`` the batches
+        whose dispatcher waited for a reserved row's copy."""
         with self._lock:
             lats = np.asarray(self._latencies)
             fills = list(self._batch_fills)
-        out: Dict = {
-            "requests": int(self._n_requests),
-            "batches": int(self._n_batches),
-            "queue_depth": self._queue.qsize(),
-            "batch_fill": fills,
-        }
+            out: Dict = {
+                "requests": int(self._n_requests),
+                "batches": int(self._n_batches),
+                "queue_depth": sum(len(slot.requests) for slot in self._pending),
+                "batch_fill": fills,
+                "staged_requests": self._n_staged,
+                "slot_grows": self._slot_grows,
+                "copy_waits": self._copy_waits,
+            }
         if len(lats):
             out.update(
                 latency_p50=float(np.percentile(lats, 50)),
@@ -585,12 +676,10 @@ class PoseScoringServer:
             return
         self._thread.join(timeout)
         if self._mesh is not None and not self._thread.is_alive():
-            self._broadcast_batch(None, None, False)
-        while True:
-            try:
-                r = self._queue.get_nowait()
-            except queue.Empty:
-                break
+            self._broadcast_batch(None, None, 0, False)
+        with self._cv:
+            pending, self._pending = self._pending, deque()
+        for r in (r for slot in pending for r in slot.requests):
             if not r.future.done():
                 r.future.set_exception(RuntimeError("server closed"))
         if not self._thread.is_alive():

@@ -26,6 +26,7 @@ import json
 import os.path as osp
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -281,16 +282,192 @@ def test_prefailed_future_does_not_poison_its_batch(variables):
 def test_submit_racing_close_never_leaves_a_hung_future(variables):
     srv = _port_server(variables, batch_sizes=(1,), warm=False)
     frames, boxes = _requests(1)
-    real_put = srv._queue.put
+    real_stage = srv._stage
 
-    def close_then_put(item):  # the worst-case interleaving, made certain
+    def close_then_stage(*args):  # the worst-case interleaving, made certain
         srv.close()
-        real_put(item)
+        real_stage(*args)
 
-    srv._queue.put = close_then_put
+    srv._stage = close_then_stage
     fut = srv.submit(frames[0], boxes[0])
     with pytest.raises(RuntimeError, match="closed"):
         fut.result(timeout=10)
+
+
+class _Gate:
+    """Holds the server's batches inside _run_bucket until released (the
+    step slowed to a stop), recording each batch's host rows: the slot's
+    base address and a copy of its real frames."""
+
+    def __init__(self, srv, monkeypatch):
+        self.entered, self.release = threading.Event(), threading.Event()
+        self.slots, self.frames = [], []
+        real = srv._run_bucket
+
+        def run(frames, boxes, allow_calibration=True):
+            self.slots.append(frames.data_ptr())
+            self.frames.append(frames.numpy().copy())
+            self.entered.set()
+            self.release.wait(timeout=60)
+            return real(frames, boxes, allow_calibration)
+
+        monkeypatch.setattr(srv, "_run_bucket", run)
+
+
+def test_padded_batch_rows_and_answers_equal_the_eager_step(server, monkeypatch):
+    """2 requests in bucket 4: the step sees the 2 staged rows and pad rows
+    holding the last real request, and each answer is bit-equal to the step
+    on the batch the dispatcher used to stack (np.stack with edge repeats)."""
+    frames, boxes = _requests(2, seed=13)
+    seen = []
+    step = server._steps[4]
+
+    def recording(f, b):
+        seen.append((f.numpy().copy(), b.numpy().copy()))
+        return step(f, b)
+
+    monkeypatch.setitem(server._steps, 4, recording)
+    got = [f.result(timeout=120) for f in [server.submit(frames[i], boxes[i])
+                                           for i in range(2)]]
+    (f_in, b_in), = seen
+    np.testing.assert_array_equal(f_in, frames[[0, 1, 1, 1]])
+    np.testing.assert_array_equal(b_in, boxes[[0, 1, 1, 1]])
+    with torch.inference_mode():
+        want = step(torch.from_numpy(np.stack([frames[0], frames[1], frames[1], frames[1]])),
+                    torch.from_numpy(np.stack([boxes[0], boxes[1], boxes[1], boxes[1]])))
+    want = tuple(w.numpy() for w in want)
+    _equal_to_eager(got, want)
+    _equal_to_eager(got, _eager(server, frames, boxes, chunk=4))
+
+
+def test_caller_reusing_its_buffers_after_submit_keeps_its_answer(server):
+    """submit() owns its inputs once it returns: the caller overwrites its
+    frame and box at once, before the batch runs, and the answer is the
+    original request's."""
+    frames, boxes = _requests(1, seed=14)
+    frame, box = frames[0].copy(), boxes[0].copy()
+    fut = server.submit(frame, box)
+    frame[:] = 0
+    box[:] = (1.0, 1.0, 2.0, 2.0)
+    _equal_to_eager([fut.result(timeout=120)], _eager(server, frames, boxes, chunk=1))
+
+
+def test_requests_during_a_batch_land_in_the_other_slot(server, monkeypatch):
+    """While the first batch is held in its step, 2 more requests are
+    written into another slot and resolve in the next batch."""
+    frames, boxes = _requests(3, seed=15)
+    gate = _Gate(server, monkeypatch)
+    before = server.stats()
+    first = server.submit(frames[0], boxes[0])
+    assert gate.entered.wait(timeout=60)
+    later = [server.submit(frames[i], boxes[i]) for i in (1, 2)]
+    assert server.stats()["queue_depth"] == 2
+    assert not any(f.done() for f in [first] + later)
+    gate.release.set()
+    got = [f.result(timeout=120) for f in [first] + later]
+    after = server.stats()
+    assert after["batch_fill"][len(before["batch_fill"]):] == [(1, 1), (2, 4)]
+    assert len(gate.slots) == 2 and gate.slots[0] != gate.slots[1]
+    np.testing.assert_array_equal(gate.frames[1], frames[1:])
+    _equal_to_eager(got[:1], _eager(server, frames[:1], boxes[:1], chunk=1))
+    _equal_to_eager(got[1:], _eager(server, frames[1:], boxes[1:], chunk=4))
+
+
+def test_burst_beyond_two_slots_grows_the_pool_without_blocking(variables, monkeypatch):
+    """130 requests arrive while the first batch is held: submit() never
+    waits for the dispatcher (the burst ends with the batch still held),
+    the pool grows past its two slots, and every future resolves, in
+    batches of the slots' rows (64, 64, 2) after the held one."""
+    srv = _port_server(variables, warm=False, max_delay_ms=1.0)
+    try:
+        frames, boxes = _requests(8, seed=16)
+        gate = _Gate(srv, monkeypatch)
+        first = srv.submit(frames[0], boxes[0])
+        assert gate.entered.wait(timeout=60)
+        futs = []
+        burst = threading.Thread(target=lambda: futs.extend(
+            srv.submit(frames[i % 8], boxes[i % 8]) for i in range(130)))
+        burst.start()
+        burst.join(timeout=60)
+        assert not burst.is_alive()
+        held = srv.stats()
+        assert held["slot_grows"] >= 1 and held["queue_depth"] == 130
+        gate.release.set()
+        assert all(isinstance(f.result(timeout=300), ScoredPose) for f in [first] + futs)
+        stats = srv.stats()
+        assert [n for n, _ in stats["batch_fill"]] == [1, 64, 64, 2]
+        assert stats["requests"] == stats["staged_requests"] == 131
+        assert stats["queue_depth"] == 0
+    finally:
+        srv.close()
+
+
+class _HeldRows:
+    """A slot's frame rows whose writes wait for a gate: a submit's copy
+    that is still running when its batch closes."""
+
+    def __init__(self, rows, gate):
+        self.rows, self.gate = rows, gate
+
+    def __setitem__(self, i, value):
+        self.gate.wait(timeout=60)
+        self.rows[i] = value
+
+
+def test_batch_waits_for_a_reserved_rows_copy(variables):
+    """The deadline closes a slot whose one row is still being copied: the
+    dispatcher counts a copy wait, runs nothing until the row is written,
+    and the answer is the written frame's."""
+    srv = _port_server(variables, batch_sizes=(1, 4), warm=False, max_delay_ms=1.0)
+    try:
+        frames, boxes = _requests(1, seed=18)
+        gate = threading.Event()
+        for slot in srv._free:
+            slot.frames_np = _HeldRows(slot.frames_np, gate)
+        futs = []
+        submitter = threading.Thread(target=lambda: futs.append(srv.submit(frames[0], boxes[0])))
+        submitter.start()
+        deadline = time.monotonic() + 60
+        while srv.stats()["copy_waits"] == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        stats = srv.stats()
+        assert stats["copy_waits"] == 1 and stats["batches"] == 0
+        gate.set()
+        submitter.join(timeout=60)
+        assert not submitter.is_alive()
+        _equal_to_eager([futs[0].result(timeout=120)], _eager(srv, frames, boxes, chunk=1))
+        assert srv.stats()["staged_requests"] == srv.stats()["requests"] == 1
+    finally:
+        srv.close()
+
+
+def test_staged_requests_equal_requests_after_a_threaded_run(server):
+    """Every request of a threaded run (more client threads than cores, a
+    short switch interval) is written straight into a slot: the staging
+    counters lose no update against the request total."""
+    n_threads, per_thread = 12, 3
+    frames, boxes = _requests(n_threads, seed=17)
+    before = server.stats()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        def worker(i):
+            for _ in range(per_thread):
+                server.submit(frames[i], boxes[i]).result(timeout=120)
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    after = server.stats()
+    assert after["requests"] - before["requests"] == 36
+    assert after["staged_requests"] - before["staged_requests"] == 36
+    assert after["queue_depth"] == 0
+    assert 0 <= after["copy_waits"] <= after["batches"]
 
 
 def _assert_same_calibration(port_q, jax_q):
@@ -454,7 +631,8 @@ def cuda_device():
 @pytest.mark.cuda
 def test_bucket_graph_replay_matches_eager_step(cuda_device):
     """On the card each bucket is a captured graph; its replay equals the
-    eager step at the same batch shape, and each replay launches K1 once."""
+    eager step at the same batch shape, from a caller's arrays and from a
+    slot's rows with n < bucket, and each replay launches K1 once."""
     from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
 
     frames, boxes = _requests(4, seed=12)
@@ -471,3 +649,18 @@ def test_bucket_graph_replay_matches_eager_step(cuda_device):
                                         torch.as_tensor(boxes[:b], device=cuda_device))
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g, w.cpu().numpy())
+        # The dispatcher's path: 3 rows written into a pinned slot, replayed
+        # in bucket 4 with the pad row filled on the card, bit-equal to the
+        # eager step on the batch padded on the host.
+        slot = srv._new_slot()
+        assert slot.frames.is_pinned()
+        slot.frames_np[:3], slot.boxes_np[:3] = frames[:3], boxes[:3]
+        launches = crop_batch_cuda.launches
+        got = srv._run_bucket(slot.frames[:3], slot.boxes[:3])
+        assert crop_batch_cuda.launches == launches + 1
+        padded = [0, 1, 2, 2]
+        with torch.inference_mode():
+            want = srv._make_step()(torch.as_tensor(frames[padded], device=cuda_device),
+                                    torch.as_tensor(boxes[padded], device=cuda_device))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.cpu().numpy())
