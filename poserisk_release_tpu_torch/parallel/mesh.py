@@ -72,8 +72,9 @@ def pad_to_multiple(x, multiple: int) -> tuple:
 
 def shard_rows(x, mesh):
     """This data rank's contiguous 1/n_data of dim 0 (x itself without a
-    data axis wider than 1). Dim 0 must divide evenly: production_chunk
-    and the server's mesh quantum guarantee it."""
+    data axis wider than 1). Dim 0 must divide evenly: PoseEstimator.
+    row_quantum, which chunks and the server's buckets round up to,
+    guarantees it."""
     n = axis_size(mesh, DATA_AXIS)
     if n == 1:
         return x

@@ -138,20 +138,12 @@ def load_spin_variables(cfg: Config) -> Dict[str, torch.Tensor]:
                             n_iter=cfg.SPIN.ief_iters)
 
 
-def _gather_rows(x, ids: np.ndarray):
-    """x[ids] for a host array, or for a tensor on its own device (the
-    streaming scorer's shared per-window upload), never via the host."""
+def _chunk_rows(x, ids: np.ndarray):
+    """A chunk's rows of x: for a tensor (the streaming scorer's shared
+    per-window upload) gathered on its own device, never via the host; for
+    a host array the rows still to gather, which _run_chunked stages."""
     if isinstance(x, torch.Tensor):
         return x[torch.as_tensor(ids, dtype=torch.long, device=x.device)]
-    return x[ids]
-
-
-def _chunk_rows(x, ids: np.ndarray):
-    """A chunk's rows of x: gathered on x's own device for a tensor; for a
-    host array the rows still to gather, which _run_chunked gathers
-    straight into its staging ring on the card."""
-    if isinstance(x, torch.Tensor):
-        return _gather_rows(x, ids)
     return HostRows(x, np.asarray(ids))
 
 
@@ -310,12 +302,11 @@ class PoseEstimator:
                                          pmesh.axis_size(mesh, spmd.SPATIAL_AXIS),
                                          pmesh.axis_index(mesh, spmd.SPATIAL_AXIS))
         self._build_cores()
-        self._ring = None  # the chunks' pinned staging, made on first use
-        self._direct_chunks = 0
+        self._ring = None  # the chunks' staging, made on first use
 
     def _build_cores(self) -> None:
         """The pose cores on the current backbone: `_pose_core` reads whole
-        crop rows (the server's step), `_step_core` is the estimator's own
+        crop rows (whole_row_step's), `_step_core` is the estimator's own
         steps' core, the same one unless the crop rows split over
         ``spatial`` (JAX constrains the crops in those steps only)."""
         from poserisk_release_tpu_torch.parallel.spmd import SpatialHMR
@@ -360,18 +351,15 @@ class PoseEstimator:
         from poserisk_release_tpu_torch.models.spin import quantize_spin_backbone
 
         calib = torch.as_tensor(calib_crops[:8], dtype=torch.float32, device=self.device)
-        if self.mesh is None:
+        qparams = None
+        if self.mesh is None or _global_rank() == 0:
             qparams = quantize_spin_backbone(
                 self._variables_f32, calib, min_stage=int(self.cfg.SPIN.int8_min_stage))
-        else:
+        if self.mesh is not None:
             # dp / ep / sp: one calibration on whole crops, replicated (rank
             # 0's, as the JAX estimator replicates its one quantized tree).
             from poserisk_release_tpu_torch.parallel.collectives import broadcast_object
 
-            qparams = None
-            if _global_rank() == 0:
-                qparams = quantize_spin_backbone(
-                    self._variables_f32, calib, min_stage=int(self.cfg.SPIN.int8_min_stage))
             qparams = broadcast_object(qparams, src=0)
         self.load_quant_backbone(qparams)
         if not self.cfg.DETECTOR.recalibrate_per_video:
@@ -410,9 +398,58 @@ class PoseEstimator:
         if self.spin_needs_calibration and len(crops):
             self._ensure_spin_quantized(torch.as_tensor(np.asarray(crops)[:8]))
 
+    def calibrate_on_frames(self, frames, bboxes) -> None:
+        """spin_int8 calibration on the f32 crops (K1 on the card) of the
+        first (at most 8) rows of uint8 frames and boxes, host arrays or
+        tensors. No-op without spin_int8, once quantized, or on no rows."""
+        if not self.spin_needs_calibration or not len(frames):
+            return
+        self._ensure_spin_quantized(crop_batch(
+            torch.as_tensor(frames[:8], device=self.device),
+            torch.as_tensor(bboxes[:8], dtype=torch.float32, device=self.device),
+            scale=float(self.cfg.DATASET.bbox_scale),
+            out_size=int(self.cfg.MODEL.input_shape[0])))
+
     @property
     def spin_needs_calibration(self) -> bool:
         return self._spin_int8 and self._quant_backbone is None
+
+    @property
+    def pose_stride(self) -> int:
+        """SPIN runs on every pose_stride-th frame (SpinConfig.pose_stride)."""
+        return self._pose_stride
+
+    @property
+    def row_quantum(self) -> int:
+        """What every chunk and server bucket rounds up to: data ranks x pose
+        stride (the anchor phase aligned across chunks, the anchors split
+        evenly over the data axis), x stage_microbatches under pp."""
+        q = self._n_data * self._pose_stride
+        if self._pp:
+            q *= int(self.cfg.PARALLEL.stage_microbatches)
+        return q
+
+    @property
+    def row_step_has_collectives(self) -> bool:
+        """Whether whole_row_step runs collectives inside itself: the model
+        axes' (tp, pp, ep), which then also gather the data rows."""
+        return self._tp or self._pp or self._ep
+
+    def whole_row_step(self):
+        """step(frames_u8, bboxes) -> (euler, joint_cam, aa) at pose stride 1:
+        crop + the current backbone's pose core (take a new step after int8
+        calibration) over whole crop rows, so spatial ranks compute their
+        data rows as replicas, as the JAX server does. Under a mesh without
+        row_step_has_collectives it returns this data rank's rows and
+        leaves their gather to the caller."""
+        core = self._pose_core
+        if self.mesh is not None and not self.row_step_has_collectives:
+            core = make_pose_core(self.parents, quant_backbone=self._quant_backbone)
+
+        def step(frames_u8: torch.Tensor, bboxes: torch.Tensor):
+            return core(self.model, self.smpl_params, self._crop(frames_u8, bboxes))
+
+        return step
 
     def _pose_step(self, crops: torch.Tensor):
         return self._step_core(self.model, self.smpl_params, crops)
@@ -434,8 +471,7 @@ class PoseEstimator:
     def run(self, crops: np.ndarray, chunk: int = 0):
         """crops: (F, 224, 224, 3) float32 [0,1]. Chunked + padded execution;
         under pose_stride > 1 only every Nth crop is uploaded (the anchors)."""
-        if crops.shape[0]:
-            self._ensure_spin_quantized(torch.as_tensor(crops[:8]))
+        self.calibrate_spin(crops)
         stride = self._pose_stride
         n = crops.shape[0]
         return self._run_chunked(
@@ -452,19 +488,13 @@ class PoseEstimator:
         angles/joints come back. Under pose_stride > 1 only every Nth
         tracked frame is uploaded. frames_rgb is a host array, or a tensor
         already on the device, whose frames are then gathered and padded
-        there. On the card a host array's frames (and every chunk's boxes)
-        are gathered straight into a pinned slot and uploaded on a copy
-        stream (_run_chunked); a device tensor's chunks keep the unstaged
-        path."""
+        there. A host array's frames, and every chunk's boxes, are staged
+        (_run_chunked)."""
         frame_ids = np.asarray(frame_ids)
         bboxes = np.asarray(bboxes, np.float32)
-        if self.spin_needs_calibration and len(frame_ids):
+        if self.spin_needs_calibration:
             # The first 8 tracked frames' f32 crops calibrate the backbone.
-            self._ensure_spin_quantized(crop_batch(
-                torch.as_tensor(_gather_rows(frames_rgb, frame_ids[:8]), device=self.device),
-                torch.as_tensor(bboxes[:8], device=self.device),
-                scale=float(self.cfg.DATASET.bbox_scale),
-                out_size=int(self.cfg.MODEL.input_shape[0])))
+            self.calibrate_on_frames(frames_rgb[frame_ids[:8]], bboxes[:8])
         stride = self._pose_stride
         n = len(frame_ids)
         return self._run_chunked(
@@ -479,24 +509,18 @@ class PoseEstimator:
 
     def production_chunk(self, chunk: int = 0) -> int:
         """THE chunk-size rule: the requested (or configured frames_per_step
-        * n_data) chunk rounded up to a multiple of n_data * pose_stride,
-        so the anchor phase stays aligned across chunks and the anchor batch
-        splits evenly over the data axis (times stage_microbatches under
-        pp, so every data shard splits into microbatches)."""
+        * n_data) chunk rounded up to a multiple of row_quantum."""
         if chunk <= 0:
             chunk = self.cfg.PARALLEL.frames_per_step * self._n_data
-        q = self._n_data * self._pose_stride
-        if self._pp:
-            q *= int(self.cfg.PARALLEL.stage_microbatches)
+        q = self.row_quantum
         return ((chunk + q - 1) // q) * q
 
     def upload_stats(self) -> Dict[str, int]:
-        """How the chunks went up: `staged_chunks` through the pinned ring
-        (with `staged_bytes`, and `slot_waits`, the times the host waited
-        for a slot's last copy), `direct_chunks` on the unstaged path."""
+        """How the chunks' host parts went up: `staged_chunks` through the
+        staging ring (with `staged_bytes`, and `slot_waits`, the times the
+        host waited for a slot's last copy on the card)."""
         ring = self._ring
         return {"staged_chunks": ring.chunks if ring else 0,
-                "direct_chunks": self._direct_chunks,
                 "staged_bytes": ring.bytes if ring else 0,
                 "slot_waits": ring.waits if ring else 0}
 
@@ -504,16 +528,16 @@ class PoseEstimator:
         """Runs step_fn over production chunks of num_items; host_chunk(start,
         size) gives a chunk's parts: HostRows of host arrays, or tensors.
 
-        A chunk whose parts are all HostRows, on a CUDA device that crops,
-        is staged (staging.StagingRing): its rows, edge-padded and cut to
-        this data rank's share, are gathered into a pinned slot and copied
-        on the ring's copy stream, and the compute stream waits on that
-        copy's event before the step. Any other chunk (a tensor part such as
-        the streaming scorer's shared device window, the CPU, a later pp
-        stage) is gathered, padded and sharded as it is and moved with
-        .to(device). Each chunk is staged before the fetch of the oldest
-        chunk in flight, whose .cpu() syncs the compute stream, so the
-        gather and copy overlap the chunk the device is running."""
+        Every HostRows part is staged (staging.StagingRing), on every
+        device: its rows, edge-padded and cut to this data rank's share,
+        are gathered into a slot. On a CUDA device that crops, the slot is
+        pinned and copied on the ring's copy stream, and the compute stream
+        waits on that copy's event before the step; elsewhere (the CPU, a
+        later pp stage) the step reads the slot's host views. A tensor part
+        (the streaming scorer's shared device window) is padded and sharded
+        on its own device. Each chunk is staged before the fetch of the
+        oldest chunk in flight, whose .cpu() syncs the compute stream, so
+        the gather and copy overlap the chunk the device is running."""
         chunk = self.production_chunk(chunk)
         if num_items == 0:
             empty = np.zeros((0, 24, 3), np.float32)
@@ -528,24 +552,15 @@ class PoseEstimator:
             # stride the uploaded parts are the anchor subsample.
             n_valid = min(chunk, num_items - start)
             parts = host_chunk(start, chunk)
-            if (self._crops_here and self.device.type == "cuda"
-                    and all(isinstance(p, HostRows) for p in parts)):
-                if self._ring is None:
-                    self._ring = StagingRing(self.device)
-                return self._ring.upload([HostRows(p.source, chunk_row_ids(p.ids, rows, self.mesh))
-                                          for p in parts]), n_valid
-            # A tensor part is padded on its own device; a host part goes up
-            # padded, only this data rank's rows of it (none on a later pp
-            # stage).
-            self._direct_chunks += 1
-            batches = []
-            for part in parts:
-                if isinstance(part, HostRows):
-                    part = torch.from_numpy(part.gather())
-                part = shard_rows(pad_to_multiple(part, rows)[0], self.mesh)
-                batches.append(part.to(self.device, non_blocking=True)
-                               if self._crops_here else part)
-            return batches, n_valid
+            host = [HostRows(p.source, chunk_row_ids(p.ids, rows, self.mesh))
+                    for p in parts if isinstance(p, HostRows)]
+            if self._ring is None:  # a later pp stage keeps its rows on the host
+                self._ring = StagingRing(self.device if self._crops_here else "cpu")
+            staged = iter(self._ring.upload(host) if host else ())
+            return [next(staged) if isinstance(p, HostRows)
+                    else shard_rows(pad_to_multiple(p, rows)[0], self.mesh).to(
+                        self.device, non_blocking=True)
+                    for p in parts], n_valid
 
         eulers, jcams, aas = [], [], []
 

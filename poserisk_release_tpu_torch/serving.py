@@ -51,7 +51,7 @@ over torch.distributed, parallel/), every rank builds the server; rank 0 owns
 the staging slots and the dispatcher and broadcasts each batch's bucket
 and real rows to a worker loop on the other ranks (every rank edge-pads
 its own share on its device), which stops on a sentinel at ``close()``.
-Buckets round up to the mesh quantum (the data axis, times
+Buckets round up to PoseEstimator.row_quantum (the data axis, times
 stage_microbatches under pp), and each data rank scores its rows of a
 batch, as the estimator splits a chunk; the results are all-gathered.
 What runs where: with a data axis alone, a bucket's CUDA graph covers the
@@ -82,12 +82,11 @@ import torch
 from poserisk_release_tpu_torch.body.smpl import SMPLFamily
 from poserisk_release_tpu_torch.config import Config, default_config
 from poserisk_release_tpu_torch.device import resolve_device
-from poserisk_release_tpu_torch.ops.crop import crop_batch
-from poserisk_release_tpu_torch.pipeline import PoseEstimator, build_detector
+from poserisk_release_tpu_torch.pipeline import PoseEstimator, _global_rank, build_detector
 from poserisk_release_tpu_torch.scoring import reba as reba_mod
 from poserisk_release_tpu_torch.scoring import rula as rula_mod
 from poserisk_release_tpu_torch.streaming import OnlineTargetTracker
-from poserisk_release_tpu_torch.throughput import default_packed_infos, make_pose_core
+from poserisk_release_tpu_torch.throughput import default_packed_infos
 from poserisk_release_tpu_torch.tracking.mpt import detect_frames
 
 # Eager runs of the step on the capture stream before each capture: cuDNN
@@ -287,18 +286,11 @@ class PoseScoringServer:
             self.cfg, SMPLFamily(self.cfg.SPIN.smpl_model_dir), variables=spin_variables,
             fast=fast, spin_int8=spin_int8, gender=gender, device=self.device)
         self._mesh = self.estimator.mesh
-        self._rank = 0
-        if self._mesh is not None:
-            import torch.distributed as dist
-
-            # Mesh quantum: every bucket splits over the data axis (and
-            # each data rank's rows into stage_microbatches under pp).
-            # Buckets round UP: padding only widens, no request is dropped.
-            q = self.estimator._n_data
-            if self.estimator._pp:
-                q *= int(self.cfg.PARALLEL.stage_microbatches)
-            self.batch_sizes = tuple(sorted({((b + q - 1) // q) * q for b in self.batch_sizes}))
-            self._rank = dist.get_rank()
+        # Buckets round UP to the row quantum (1 without a mesh): padding
+        # only widens, no request is dropped.
+        q = self.estimator.row_quantum
+        self.batch_sizes = tuple(sorted({((b + q - 1) // q) * q for b in self.batch_sizes}))
+        self._rank = 0 if self._mesh is None else _global_rank()
         if calibration_crops is not None:
             self.estimator.calibrate_spin(calibration_crops)
         if add_info is None:
@@ -323,7 +315,7 @@ class PoseScoringServer:
         self._rows = self.batch_sizes[-1]
         self._pending: "deque[_Slot]" = deque()
         self._free: List[_Slot] = []
-        self._n_staged = self._slot_grows = self._copy_waits = 0
+        self._slot_grows = self._copy_waits = 0
         # Bounded metric windows: percentiles and fills cover the most
         # recent requests while the totals stay exact counters.
         self._latencies: "deque[float]" = deque(maxlen=4096)
@@ -348,41 +340,33 @@ class PoseScoringServer:
 
     # -- graph construction -------------------------------------------------
     def _make_step(self):
-        """The fused step on the estimator's CURRENT pose core (int8
-        calibration swaps it): crop + pose (run_from_frames' per-chunk
-        step) + REBA/RULA on the card, on this data rank's rows. With a
-        data axis alone the step stops short of the rows' gather, which
+        """The fused step: PoseEstimator.whole_row_step (crop + pose on the
+        CURRENT backbone, this data rank's rows) + REBA/RULA on the card.
+        With a data axis alone it stops short of the rows' gather, which
         _run_bucket does after it, outside the bucket's graph."""
-        est = self.estimator
+        pose = self.estimator.whole_row_step()
         info_reba, info_rula = self._info_reba, self._info_rula
-        # Whole crop rows: under sp the spatial ranks score their data
-        # rows as replicas, as the JAX server's step never constrains them.
-        core = est._pose_core
-        if self._mesh is not None and not self._model_axes:
-            core = make_pose_core(est.parents, quant_backbone=est._quant_backbone)
 
         def step(frames_u8: torch.Tensor, bboxes: torch.Tensor):
-            euler, joint_cam, _aa = core(est.model, est.smpl_params, est._crop(frames_u8, bboxes))
+            euler, joint_cam, _aa = pose(frames_u8, bboxes)
             reba = reba_mod.reba_frame_scores(euler, info_reba)["score"]
             rula = rula_mod.rula_frame_scores(euler, info_rula)["score"]
             return reba, rula, euler, joint_cam
 
         return step
 
-    @property
-    def _model_axes(self) -> bool:
-        return self.estimator._tp or self.estimator._pp or self.estimator._ep
-
     def _build_steps(self) -> Dict[int, object]:
         """One bucket graph per bucket on the card (captured on first use,
         one shared memory pool, over this data rank's rows of the bucket),
         the eager step elsewhere and wherever collectives sit inside it."""
         step = self._make_step()
-        if not self._cuda or self._model_axes:
+        if not self._cuda or self.estimator.row_step_has_collectives:
             return {b: step for b in self.batch_sizes}
+        from poserisk_release_tpu_torch.parallel.mesh import shard_rows
+
         pool = torch.cuda.graph_pool_handle()
-        n = self.estimator._n_data
-        return {b: _BucketGraph(step, b // n, self.frame_hw, self.device, pool, self._stream)
+        return {b: _BucketGraph(step, len(shard_rows(np.arange(b), self._mesh)), self.frame_hw,
+                                self.device, pool, self._stream)
                 for b in self.batch_sizes}
 
     def _release_steps(self) -> None:
@@ -466,10 +450,7 @@ class PoseScoringServer:
             # quantized core replaces the f32 one, so the bucket graphs are
             # released and captured anew, once.
             first = torch.from_numpy(np.minimum(np.arange(min(8, bucket)), len(frames) - 1))
-            self.estimator._ensure_spin_quantized(crop_batch(
-                frames[first].to(self.device), bboxes[first].to(self.device),
-                scale=float(self.cfg.DATASET.bbox_scale),
-                out_size=int(self.cfg.MODEL.input_shape[0])))
+            self.estimator.calibrate_on_frames(frames[first], bboxes[first])
             self._release_steps()
             self._steps = self._build_steps()
         step = self._steps[bucket]
@@ -484,7 +465,7 @@ class PoseScoringServer:
             with torch.inference_mode():
                 outs = step(*inputs)
             outs = tuple(o.cpu().numpy() for o in outs)
-        if self._mesh is None or self._model_axes:
+        if self._mesh is None or self.estimator.row_step_has_collectives:
             return outs  # the estimator's step gathered the rows already
         # The rows' gather, outside the graph: scores travel as float32
         # (small integers, exact) in one collective with the angles.
@@ -571,7 +552,6 @@ class PoseScoringServer:
         finally:
             with self._cv:
                 slot.copied += 1
-                self._n_staged += 1
                 if slot.closed and slot.copied == len(slot.requests):
                     self._cv.notify_all()
 
@@ -636,10 +616,10 @@ class PoseScoringServer:
         ``batches``), requests staged and not yet in a batch
         (``queue_depth``), per-batch (n_real, bucket) fills (``batch_fill``)
         and submit->result latency percentiles (seconds) over the most
-        recent 4096-entry window. Staging: ``staged_requests`` counts the
-        requests written into a slot row at submit, ``slot_grows`` the
-        slots allocated beyond the first two, ``copy_waits`` the batches
-        whose dispatcher waited for a reserved row's copy."""
+        recent 4096-entry window. Staging (every request is written into a
+        slot row at submit): ``slot_grows`` counts the slots allocated
+        beyond the first two, ``copy_waits`` the batches whose dispatcher
+        waited for a reserved row's copy."""
         with self._lock:
             lats = np.asarray(self._latencies)
             fills = list(self._batch_fills)
@@ -648,7 +628,6 @@ class PoseScoringServer:
                 "batches": int(self._n_batches),
                 "queue_depth": sum(len(slot.requests) for slot in self._pending),
                 "batch_fill": fills,
-                "staged_requests": self._n_staged,
                 "slot_grows": self._slot_grows,
                 "copy_waits": self._copy_waits,
             }

@@ -1,12 +1,13 @@
-"""Pinned host staging for the pose estimator's chunk uploads.
+"""Host staging for the pose estimator's chunk uploads.
 
-PoseEstimator._run_chunked uploads every chunk's host parts (the tracked
-uint8 frames and their boxes, or float32 crops). From pageable memory
-that copy cannot be asynchronous: the driver stages it through its own
-bounce buffer, in order on the compute stream, so the host waits for the
-chunks already enqueued to drain and the device then idles while the
-bytes go across. StagingRing gathers each chunk's rows straight into one
-of two page-locked host slots and copies them on a stream of its own:
+PoseEstimator._run_chunked stages every chunk's host parts (the tracked
+uint8 frames and their boxes, or float32 crops), on every device. From
+pageable memory a copy to the card cannot be asynchronous: CUDA
+stages it through its own bounce buffer, in order on the compute stream,
+so the host waits for the chunks already enqueued to drain and the device
+then idles while the bytes go across. On CUDA StagingRing gathers each
+chunk's rows straight into one of two page-locked host slots and copies
+them on a stream of its own:
 
     host:    gather rows into slot k  (after slot k's last copy finished)
     copy:    H2D of slot k → fresh device tensors; record event e_k
@@ -14,12 +15,11 @@ of two page-locked host slots and copies them on a stream of its own:
 
 The device tensors are allocated on the copy stream and handed to the
 compute stream with record_stream, so the caching allocator never gives
-their blocks back to a copy while a pending step still reads them.
-
-The rows a chunk stages are those the unstaged path uploads: the ids edge-
-padded to the chunk's rows as parallel.mesh.pad_to_multiple pads the
-gathered array, then this data rank's share as parallel.mesh.shard_rows
-cuts it (chunk_row_ids), so the same bytes reach the same step.
+their blocks back to a copy while a pending step still reads them. A
+ring on the CPU (on a CPU estimator, or a later pp stage, which crops
+nothing) hands the step the slot's host views. The rows staged are the
+ids edge-padded as parallel.mesh.pad_to_multiple pads a gathered array,
+then cut as parallel.mesh.shard_rows cuts it (chunk_row_ids).
 """
 
 from __future__ import annotations
@@ -43,9 +43,6 @@ class HostRows(NamedTuple):
 
     source: np.ndarray
     ids: np.ndarray
-
-    def gather(self) -> np.ndarray:
-        return self.source[self.ids]
 
 
 def chunk_row_ids(ids: np.ndarray, rows: int, mesh) -> np.ndarray:
@@ -82,9 +79,11 @@ class StagingRing:
     uses its front, so a new shape never reallocates. A slot is refilled
     only after the copy that last read it has finished (its event).
 
-    On a CUDA device the slots are page-locked; on the CPU they are plain
-    memory and nothing is copied (fill alone: the slot fill is what the
-    CPU tests check)."""
+    On a CUDA device the slots are page-locked. On the CPU they are plain
+    memory and upload returns the slot's host views, which holds only if
+    no step output and no pending send views a slot after the step returns
+    (slot k is refilled two chunks later): an eager CPU step has finished
+    by then, and a pp stage waits for its sends before it returns."""
 
     SLOTS = 2
 
@@ -133,9 +132,11 @@ class StagingRing:
         return k, host
 
     def upload(self, parts: Sequence[HostRows]) -> List[torch.Tensor]:
-        """The parts' rows on the device, for the current (compute) stream:
-        gathered into a slot, copied on the copy stream, and waited on by
-        the current stream before anything it enqueues next."""
+        """The parts' rows for the step, gathered into a slot: on CUDA copied
+        on the copy stream, which the current (compute) stream waits on
+        before anything it enqueues next; elsewhere the slot's host views."""
+        if not self._cuda:
+            return self.fill(parts)[1]
         compute = torch.cuda.current_stream(self.device)
         with self._lock:
             k, host = self.fill(parts)

@@ -48,7 +48,6 @@ from poserisk_release_tpu_torch.config import Config, default_config
 from poserisk_release_tpu_torch.device import resolve_device
 from poserisk_release_tpu_torch.io.video import _window_stream
 from poserisk_release_tpu_torch.models.detector import StubDetector
-from poserisk_release_tpu_torch.ops.crop import crop_batch
 from poserisk_release_tpu_torch.outputs.render import ResultVideoWriter
 from poserisk_release_tpu_torch.outputs.stats import (
     final_scores_stats,
@@ -215,17 +214,11 @@ class _SpinCalibrator:
             self._boxes.append(np.asarray(box))
 
     def ensure(self) -> None:
-        """Quantize the backbone on the gathered crops (K1 on the card),
-        as run_from_frames would on the owner track's first frames."""
+        """Quantize the backbone on the gathered frames, as run_from_frames
+        would on the owner track's first frames."""
         if not self.est.spin_needs_calibration or not self._px:
             return
-        dev = self.est.device
-        calib = crop_batch(
-            torch.as_tensor(np.stack(self._px), device=dev),
-            torch.as_tensor(np.stack(self._boxes).astype(np.float32), device=dev),
-            scale=float(self.est.cfg.DATASET.bbox_scale),
-            out_size=int(self.est.cfg.MODEL.input_shape[0]))
-        self.est._ensure_spin_quantized(calib)
+        self.est.calibrate_on_frames(np.stack(self._px), np.stack(self._boxes))
         self._px, self._boxes = [], []
 
 
@@ -251,7 +244,7 @@ class _TrackChunkScorer:
                  calibrator: _SpinCalibrator):
         self.est = scorer.estimator
         self.validate = scorer.validate_rotations
-        self.stride = self.est._pose_stride
+        self.stride = self.est.pose_stride
         self.chunk = self.est.production_chunk()
         self.add_info, self.reba, self.rula = add_info, reba, rula
         self.result = result
@@ -411,7 +404,7 @@ class StreamingScorer:
             stop_at = min(stop_at, max_frames)
         render_plan, video_output = self._build_render_plan(
             reba, rula, video_types, self._video_output(video_output))
-        if self.estimator._pose_stride > 1:
+        if self.estimator.pose_stride > 1:
             # Chunk-aligned scoring per track (_TrackChunkScorer). Each
             # track buffers its own anchor pixels, so the shared union
             # upload does not apply; rendering is a decode pass of its own
@@ -557,7 +550,7 @@ class StreamingScorer:
         if video_output is not None:
             os.makedirs(video_output, exist_ok=True)
 
-        if self.estimator._pose_stride > 1:
+        if self.estimator.pose_stride > 1:
             # Chunk-aligned scoring (_TrackChunkScorer): the anchor phase
             # follows the track's own frame index, as in the batch path.
             # Its scores lag the windows by up to a chunk, so rendering is

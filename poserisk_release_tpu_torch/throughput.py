@@ -40,8 +40,11 @@ def make_pose_core(parents: Tuple[int, ...], pose_stride: int = 1,
     pose_stride > 1 is the pose-stride throughput mode: `crops` are the
     ANCHOR crops (every pose_stride-th frame) and SPIN runs only on them; the
     intermediate frames' 24 joint rotations are slerped between the
-    surrounding anchors (anchors sit at t == 0, so anchor poses are
-    bit-exact vs stride 1). Frames after the LAST anchor hold its pose.
+    surrounding anchors (anchors sit at t == 0). An anchor row equals a
+    stride-1 run's only where it sits at the same position in the batch: a
+    CPU atan2 rounds its vector body and its scalar tail differently, so a
+    stride-1 run on the anchor crops alone may differ in the last bits.
+    Frames after the LAST anchor hold its pose.
 
     quant_backbone: the folded / int8-PTQ ResNet-50 (models/spin.
     quantize_spin_backbone, prepared by models/resnet_int8.prepare_resnet50)

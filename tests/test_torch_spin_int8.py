@@ -192,6 +192,32 @@ def test_run_from_frames_quantizes_on_first_crops(shared):
     assert euler.shape == joint_cam.shape == (8, 24, 3) and np.isfinite(euler).all()
 
 
+def test_calibrate_on_frames_equals_run_from_frames_calibration(shared):
+    """The one calibration entry from frames: on a clip's first 8 tracked
+    (frame, box) rows it leaves the quant_params that run_from_frames'
+    implicit calibration leaves, and once quantized it does nothing."""
+    cfg = default_config().replace(PARALLEL={"frames_per_step": 8},
+                                   MODEL={"input_shape": (64, 64)})
+
+    def estimator():
+        return PoseEstimator(cfg, SMPLFamily(cfg.SPIN.smpl_model_dir), variables=shared[1],
+                             spin_int8=True, device="cpu")
+
+    rng = np.random.RandomState(4)
+    frames = rng.randint(0, 255, (16, 48, 64, 3)).astype(np.uint8)
+    ids = np.sort(rng.choice(16, 11, replace=False))
+    bboxes = np.stack([[32.0 + i % 3, 24.0, 30.0 + i % 4, 30.0] for i in range(11)])
+    implicit = estimator()
+    implicit.run_from_frames(frames, ids, bboxes)
+    explicit = estimator()
+    explicit.calibrate_on_frames(frames[ids[:8]], bboxes[:8])
+    assert not explicit.spin_needs_calibration
+    _assert_same_tree(explicit.quant_params, implicit.quant_params)
+    quant = explicit.quant_params
+    explicit.calibrate_on_frames(frames[ids[8:]], bboxes[8:])
+    assert explicit.quant_params is quant
+
+
 def test_calibrate_spin_once_and_reset(shared):
     rng = np.random.RandomState(2)
     bright = rng.uniform(0.5, 1.0, (4, 224, 224, 3)).astype(np.float32)

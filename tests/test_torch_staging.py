@@ -1,14 +1,15 @@
-"""The pose estimator's pinned staging ring (staging.StagingRing) and the
-chunks' two upload paths in PoseEstimator._run_chunked.
+"""The pose estimator's staging ring (staging.StagingRing) and how
+PoseEstimator._run_chunked uploads a chunk's parts.
 
 On the CPU the ring's slots are plain memory, and the tests hold its fill to
-the rows the unstaged path uploads: x[ids] edge-padded by
+the rows of the gathered array: x[ids] edge-padded by
 parallel.mesh.pad_to_multiple and cut by parallel.mesh.shard_rows, for
 contiguous, strided and shuffled ids, a ragged last chunk and a data rank's
-share; the slots' reuse order and growth; and the estimator on the CPU,
-which keeps the unstaged path. The `cuda` tests (skipped here) hold the
-staged path on the card bit for bit to the unstaged one: run_from_frames on
-a host pool against the same pool as a device tensor, run on host crops
+share; the slots' reuse order and growth; the estimator on the CPU, which
+stages every host part and reads the slots' host views, a failed chunk's
+retry, and a chunk that mixes a device tensor with host boxes. The `cuda`
+tests (skipped here) hold the pinned path on the card bit for bit: a
+host pool against the same pool as a device tensor, run on host crops
 against the pose step on the same crops uploaded plainly, and the fetch's
 retry, which re-stages its chunk. On the card:
 
@@ -51,7 +52,7 @@ def _pool(n=40, hw=(6, 10), seed=0):
 
 
 def _unstaged(source, ids, rows, mesh=None):
-    """What the unstaged path uploads for one host part."""
+    """One host part gathered, padded and cut as a tensor part is."""
     return shard_rows(pad_to_multiple(source[ids], rows)[0], mesh)
 
 
@@ -177,7 +178,7 @@ def cpu_estimator():
     return _estimator("cpu")
 
 
-def test_cpu_keeps_the_unstaged_path_and_retries_a_failed_chunk(cpu_estimator):
+def test_cpu_stages_every_host_chunk_and_retries_a_failed_chunk(cpu_estimator):
     est = cpu_estimator
     frames, ids, boxes = _track(16, 11, (40, 56))
     before = est.upload_stats()
@@ -190,9 +191,30 @@ def test_cpu_keeps_the_unstaged_path_and_retries_a_failed_chunk(cpu_estimator):
     assert len(calls) == 3  # 2 chunks, the first run twice
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    after = est.upload_stats()
-    assert est._ring is None
-    assert after == dict(before, direct_chunks=before["direct_chunks"] + 5)
+    # 2 + 2 chunks and the retry, each 8 frames and 8 boxes; the CPU never waits.
+    assert est.upload_stats() == dict(
+        before, staged_chunks=before["staged_chunks"] + 5,
+        staged_bytes=before["staged_bytes"] + 5 * 8 * (frames[0].nbytes + 16))
+    assert est._ring.waits == 0
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_device_frames_with_host_boxes_equal_the_all_host_run(cpu_estimator, stride):
+    """A chunk whose frames are a tensor (the streaming scorer's shared
+    window) and whose boxes are host rows: the frames are padded and cut on
+    their device, the boxes staged, and the answers equal the run whose
+    parts are all staged."""
+    est = cpu_estimator if stride == 1 else _estimator("cpu", stride=stride)
+    frames, ids, boxes = _track(16, 11, (40, 56))
+    want = est.run_from_frames(frames, ids, boxes)
+    before = est.upload_stats()
+    got = est.run_from_frames(torch.as_tensor(frames), ids, boxes)
+    for g, w in zip(got, want):
+        assert g.shape == (11, 24, 3)
+        np.testing.assert_array_equal(g, w)
+    rows = 8 // stride
+    assert est.upload_stats() == dict(before, staged_chunks=before["staged_chunks"] + 2,
+                                      staged_bytes=before["staged_bytes"] + 2 * rows * 16)
 
 
 def test_host_chunk_parts_are_host_rows_or_device_tensors(cpu_estimator):
@@ -247,10 +269,13 @@ def test_host_pool_staged_bit_equal_to_device_pool(cuda_device, stride):
         assert g.shape == (N_TRACKED, 24, 3)
         np.testing.assert_array_equal(g, w)
     rows = 8 // stride
-    assert stats == {"staged_chunks": 12, "direct_chunks": 0,
+    assert stats == {"staged_chunks": 12,
                      "staged_bytes": 12 * rows * (HW[0] * HW[1] * 3 + 16),
                      "slot_waits": stats["slot_waits"]}
-    assert est.upload_stats() == dict(stats, direct_chunks=12)
+    # The device pool's chunks stage their boxes alone.
+    after = est.upload_stats()
+    assert after == dict(stats, staged_chunks=24, slot_waits=after["slot_waits"],
+                         staged_bytes=stats["staged_bytes"] + 12 * rows * 16)
 
 
 @pytest.mark.cuda
@@ -280,5 +305,5 @@ def test_fetch_retry_restages_its_chunk(cuda_device):
     assert len(calls) == 13
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    assert est.upload_stats()["staged_chunks"] == 13
-    assert est.upload_stats()["direct_chunks"] == 12
+    # 12 chunks of the device pool's boxes, then 12 host chunks and the retry.
+    assert est.upload_stats()["staged_chunks"] == 25
