@@ -111,6 +111,7 @@ no last line). Exits non-zero without CUDA.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -161,9 +162,11 @@ def reset_launch_counts() -> None:
         crop_batch_windowed_cuda,
         fused_letterbox_crop_cuda,
     )
+    from poserisk_release_tpu_torch.ops.epilogue import conv_epilogue_cuda
     from poserisk_release_tpu_torch.ops.skin import skin_vertices_cuda
     from poserisk_release_tpu_torch.ops.yolo_stage import fused_residual_stage_cuda
 
+    conv_epilogue_cuda.launches = 0
     crop_batch_cuda.launches = fused_letterbox_crop_cuda.launches = 0
     skin_vertices_cuda.launches = crop_batch_windowed_cuda.launches = 0
     fused_residual_stage_cuda.launches = crop_batch_multi_cuda.launches = 0
@@ -300,10 +303,13 @@ def check_crop_kernel(device, main_frames, main_bboxes) -> dict:
 
 def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None,
               spin_int8: bool = False):
-    """Drive the pose path once; returns (K1 launches, axis-angles, tracked
-    frame ids, the estimator). With spin_int8 the estimator calibrates its
-    int8 backbone on the warm-up call's first 8 crops."""
+    """Drive the pose path once; returns (K1 launches, conv epilogue
+    launches, axis-angles, tracked frame ids, the estimator). With spin_int8
+    the estimator calibrates its int8 backbone on the warm-up call's first 8
+    crops. The strict path must launch the epilogue 53 times a chunk (its
+    folded NCHW backbone), the fast and int8 paths never."""
     from poserisk_release_tpu_torch.models.detector import StubDetector
+    from poserisk_release_tpu_torch.ops.epilogue import conv_epilogue_cuda
     from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
     from poserisk_release_tpu_torch.outputs.stats import post_process_scores, write_result_txt
     from poserisk_release_tpu_torch.pipeline import PoseEstimator, load_add_info
@@ -339,7 +345,7 @@ def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None,
         write_result_txt(out_dir, title, final, level, name)
         scores[title] = np.asarray(per_frame)
     t["score+outputs"] = time.perf_counter() - t0
-    launches = crop_batch_cuda.launches
+    launches, epilogue_launches = crop_batch_cuda.launches, conv_epilogue_cuda.launches
 
     n = len(track_frames)
     for name, arr in (("euler", euler), ("joint_cam", joint_cam), ("aa", aa)):
@@ -359,7 +365,7 @@ def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None,
     bb = torch.as_tensor(np.asarray(bboxes[:CHUNK], np.float32), device=device)
     with torch.inference_mode():
         crops = crop_batch(f, bb, out_dtype=torch.bfloat16 if fast else torch.float32)
-        if spin_int8:
+        if est._quant_backbone is not None:  # the int8 backbone, or the strict folded one
             from poserisk_release_tpu_torch.models.spin import hmr_forward_quant
 
             def hmr():
@@ -371,10 +377,13 @@ def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None,
         chunk_ms = {"crop": time_ms(lambda: crop_batch(f, bb, out_dtype=crops.dtype)),
                     "hmr": time_ms(hmr, per_rep=2),
                     "pose_step": time_ms(lambda: est._pose_step_from_frames(f, bb), per_rep=2)}
+        if est._folds:  # what the module, which the throughput steps still take, costs
+            chunk_ms["hmr_module"] = time_ms(lambda: est.model(crops), per_rep=2)
     chunk_ms["rotations+joints"] = chunk_ms["pose_step"] - chunk_ms["hmr"] - chunk_ms["crop"]
     line = {"phase": ("main_path_fast" if fast else "main_path_strict")
             + ("_spin_int8" if spin_int8 else ""),
             "frames": len(frames), "tracked": n, "crop_launches": launches,
+            "epilogue_launches": epilogue_launches,
             "pose_frames_per_s": n / t["pose"], "stage_s": t, "chunk_ms": chunk_ms,
             "reba_mode": int(np.bincount(scores["REBA"]).argmax()),
             "rula_mode": int(np.bincount(scores["RULA"]).argmax())}
@@ -395,7 +404,12 @@ def main_path(device, frames, fast: bool, variables, smpl, cfg, cpu_ref=None,
     print(json.dumps(line))
     if launches <= 0:
         raise AssertionError("the main path launched no crop kernel")
-    return launches, aa, track_frames, est
+    strict = not (fast or spin_int8)
+    want = EPILOGUES_PER_FORWARD * -(-n // est.production_chunk(CHUNK)) if strict else 0
+    if epilogue_launches != want:
+        raise AssertionError(f"the main path launched the conv epilogue {epilogue_launches} "
+                             f"times, not {want}")
+    return launches, epilogue_launches, aa, track_frames, est
 
 
 STRIDE_TRIPLES = [(1, 1, 1), (2, 2, 1), (4, 1, 1), (2, 1, 2), (1, 4, 1), (1, 1, 8), (1, 2, 4),
@@ -741,6 +755,112 @@ def skin_bound_ms(B, V, NB, P, J) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+EPILOGUES_PER_FORWARD = 53  # ResNet-50's convs: the stem, 16 bottlenecks x 3, 4 downsamples
+
+
+def epilogue_calls(device, variables) -> list:
+    """The conv epilogue's 53 calls of one strict-f32 HMR forward on a
+    64-crop chunk: [(NCHW shape, relu, with residual)], recorded from the
+    folded backbone the strict estimator builds."""
+    from poserisk_release_tpu_torch.models.resnet_int8 import (
+        fold_resnet50_params,
+        prepare_resnet50,
+        resnet50_forward,
+    )
+    from poserisk_release_tpu_torch.ops import epilogue
+
+    folded = prepare_resnet50(fold_resnet50_params(variables), device)
+    calls = []
+    launch = epilogue.conv_epilogue
+
+    def record(y, bias, residual=None, relu=False):
+        calls.append((tuple(y.shape), bool(relu), residual is not None))
+        return launch(y, bias, residual, relu)
+
+    epilogue.conv_epilogue = record
+    try:
+        with torch.inference_mode():
+            resnet50_forward(folded, torch.rand((CHUNK, OUT, OUT, 3), device=device),
+                             torch.float32)
+    finally:
+        epilogue.conv_epilogue = launch
+    return calls
+
+
+def check_epilogue_kernel(device, variables) -> dict:
+    """The conv epilogue against its plain version on the card, bit for bit,
+    at every call of a 64-crop forward, then the 53 calls timed together:
+    the kernel, its plain version, and the sequence it took the place of
+    (library_ms: inference BatchNorm on the channels-last conv output, the
+    in-place ReLU, and conv3's residual add before it, as the module ran
+    them)."""
+    import torch.nn.functional as F
+
+    from poserisk_release_tpu_torch.ops.epilogue import conv_epilogue_cuda, conv_epilogue_plain
+    from poserisk_release_tpu_torch.tools.timing import HBM_BYTES_PER_S
+
+    calls = epilogue_calls(device, variables)
+    g = torch.Generator(device=device).manual_seed(0)
+    ys, biases, residuals, err = [], [], [], 0.0
+    n0 = conv_epilogue_cuda.launches
+    for shape, relu, with_res in calls:
+        y = torch.randn(shape, device=device, generator=g)
+        b = torch.randn(shape[1], device=device, generator=g)
+        r = torch.randn(shape, device=device, generator=g) if with_res else None
+        want = conv_epilogue_plain(y.clone(), b, r, relu)
+        got = conv_epilogue_cuda(y.clone(), b, r, relu)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"conv epilogue {shape} relu={relu} residual={with_res} "
+                                 "differs from its plain version")
+        ys.append(y)
+        biases.append(b)
+        residuals.append(r)
+    launches = conv_epilogue_cuda.launches - n0
+    forms = list(zip(ys, biases, residuals, (relu for _, relu, _ in calls)))
+
+    def kernel():
+        for y, b, r, relu in forms:
+            conv_epilogue_cuda(y, b, r, relu)
+
+    def plain():
+        for y, b, r, relu in forms:
+            conv_epilogue_plain(y, b, r, relu)
+
+    stats = [(torch.randn(y.shape[1], device=device, generator=g),
+              torch.rand(y.shape[1], device=device, generator=g) + 0.5,
+              torch.rand(y.shape[1], device=device, generator=g) + 0.5,
+              torch.randn(y.shape[1], device=device, generator=g)) for y in ys]
+    ys_cl = [y.contiguous(memory_format=torch.channels_last) for y in ys]
+    res_cl = [None if r is None else r.contiguous(memory_format=torch.channels_last)
+              for r in residuals]
+
+    def library():
+        for y, r, (mean, var, scale, shift), (_, relu, _) in zip(ys_cl, res_cl, stats, calls):
+            out = F.batch_norm(y, mean, var, scale, shift, False, 0.0, 1e-5)
+            if r is not None:
+                out = out + r
+            if relu:
+                out.relu_()
+
+    ms, plain_ms, library_ms = time_ms(kernel, per_rep=2), time_ms(plain, per_rep=2), \
+        time_ms(library, per_rep=2)
+    n_bytes = sum(math.prod(shape) * (12 if with_res else 8) for shape, _, with_res in calls)
+    row = {"name": "conv_epilogue_cuda", "route": "cuda",
+           "source": "poserisk_release_tpu_torch/csrc/conv_epilogue.cu", "replaces": None,
+           "launches": launches, "calls_per_forward": len(calls), "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": library_ms}
+    print(json.dumps({"phase": "epilogue_check", "calls": len(calls), "bytes": n_bytes,
+                      "batch": CHUNK, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                              "library_ms")}}))
+    if len(calls) != EPILOGUES_PER_FORWARD:
+        raise AssertionError(f"{len(calls)} epilogue calls in one forward, not "
+                             f"{EPILOGUES_PER_FORWARD}")
+    return row
+
+
 def debug_mesh(device, cfg, smpl, variables, aa, track_frames) -> dict:
     """K4 against its plain version on the card at B = 1 and B = 64, LBS
     against the plain forward, timings, then the --debug_frame mesh export
@@ -882,9 +1002,12 @@ def streaming_path(device, variables, smpl, cfg) -> int:
     with two scripted people (equal to per-track batch runs, the union of a
     window's frames uploaded once to the card); and the device memory peak
     of the two-pass over STREAM_FRAMES and STREAM_LONG frames. Returns the
-    K1 launches of the streaming runs (not of their references)."""
+    K1 launches of the streaming runs (not of their references). A strict
+    run must launch the conv epilogue (its folded NCHW backbone), a fast
+    one never."""
     from poserisk_release_tpu_torch import streaming
     from poserisk_release_tpu_torch.models.detector import StubDetector
+    from poserisk_release_tpu_torch.ops.epilogue import conv_epilogue_cuda
     from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
     from poserisk_release_tpu_torch.pipeline import PoseEstimator, load_add_info
     from poserisk_release_tpu_torch.scoring.reba import REBAScorer
@@ -897,8 +1020,14 @@ def streaming_path(device, variables, smpl, cfg) -> int:
 
     info = load_add_info(cfg, "")
     reba, rula = REBAScorer(device=device), RULAScorer(device=device)
-    launches, t_phase = [], time.perf_counter()
+    launches, epilogues, t_phase = [], [], time.perf_counter()
     real_stream = streaming._window_stream
+
+    def epilogues_engaged(strict: bool, what: str) -> None:
+        """The last counted run launched the epilogue iff it was strict."""
+        if (epilogues[-1] > 0) != strict:
+            raise AssertionError(f"streaming {what}: {epilogues[-1]} conv epilogue launches "
+                                 f"on the {'strict' if strict else 'fast'} path")
 
     def drive(scorer, n_frames, method="__call__"):
         """One counted streaming run over n_frames: (result, K1 launches,
@@ -912,6 +1041,7 @@ def streaming_path(device, variables, smpl, cfg) -> int:
             sync(device)
             seconds = time.perf_counter() - t0
             launches.append(crop_batch_cuda.launches)
+            epilogues.append(conv_epilogue_cuda.launches)
         finally:
             streaming._window_stream = real_stream
         return result, launches[-1], seconds
@@ -940,10 +1070,13 @@ def streaming_path(device, variables, smpl, cfg) -> int:
         same = (result.frames == [int(f) for f in track_frames]
                 and (result.reba_scores, result.rula_scores) == want)
         line = {"phase": "streaming_two_pass", "frames": n_frames, "pose_stride": pose_stride,
-                "fast": fast, "spin_int8": spin_int8, "k1_launches": k1, "seconds": seconds,
+                "fast": fast, "spin_int8": spin_int8, "k1_launches": k1,
+                "epilogue_launches": epilogues[-1], "seconds": seconds,
                 "streaming_frames_per_s": n_frames / seconds, "scored": len(result.frames),
                 "equal_to_batch_path": same}
         print(json.dumps(line))
+        if not spin_int8:  # int8 calibrates on f32 walks of the folded backbone
+            epilogues_engaged(not fast, f"two-pass {line}")
         if not same:
             raise AssertionError(f"streaming two-pass differs from the batch path: {line}")
         return scorer
@@ -956,9 +1089,10 @@ def streaming_path(device, variables, smpl, cfg) -> int:
         result, k1, seconds = drive(scorer, n)
         peaks[n] = (torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda"
                     else 0)
+        epilogues_engaged(True, f"{n} frames")
         line = {"phase": "streaming_memory", "frames": n, "k1_launches": k1,
-                "seconds": seconds, "streaming_frames_per_s": n / seconds,
-                "max_memory_allocated": peaks[n]}
+                "epilogue_launches": epilogues[-1], "seconds": seconds,
+                "streaming_frames_per_s": n / seconds, "max_memory_allocated": peaks[n]}
         if n == STREAM_FRAMES:  # held against the batch path on the same frames
             t0 = time.perf_counter()
             frames = SyntheticStream(n).frames(0, n)
@@ -1208,6 +1342,10 @@ def serving_path(device, frames, bboxes, track_frames, variables, smpl, cfg) -> 
             rec["crop_kernel_records"], rec["kernels_per_replay"], rec[
                 "replay_kernel_us"] = profile_replays(bucket, n_prof)
             rec["k1_recorded_per_replay"] = bucket.k1_per_replay
+            rec["epilogue_recorded_per_replay"] = bucket.epilogue_per_replay
+            ensure(bucket.epilogue_per_replay == EPILOGUES_PER_FORWARD,
+                   f"bucket {b}: {bucket.epilogue_per_replay} conv epilogues recorded, "
+                   f"not {EPILOGUES_PER_FORWARD}")
             # One K1 launch a replay: the capture recorded exactly one, and
             # the profiler sees n records in n replays. In some processes on
             # the card it lost a few kernel records in every session, one
@@ -2663,7 +2801,7 @@ def main() -> int:
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
 
     t0 = time.perf_counter()
-    sources = ["crop", "letterbox_crop", "skin", "yolo_stage"]
+    sources = ["crop", "letterbox_crop", "skin", "yolo_stage", "conv_epilogue"]
     _build.build(sources)
     print(json.dumps({"phase": "build", "sources": [n + ".cu" for n in sources],
                       "seconds": time.perf_counter() - t0}))
@@ -2683,6 +2821,7 @@ def main() -> int:
     main_bboxes = np.asarray(main_bboxes, np.float32)
     k1 = check_crop_kernel(device, frames, main_bboxes)
     k2 = check_letterbox_crop_kernel(device, frames, main_bboxes)
+    ke = check_epilogue_kernel(device, variables)
 
     def cpu_ref(bboxes, track_frames, card_est, k=4):
         """The port's CPU path on the first k tracked frames, in the card
@@ -2694,8 +2833,8 @@ def main() -> int:
         e, j, _ = cpu_est.run_from_frames(frames, track_frames[:k], bboxes[:k], chunk=k)
         return e, j
 
-    k1["launches"], aa, track_frames, _ = main_path(device, frames, False, variables, smpl,
-                                                    cfg, cpu_ref)
+    k1["launches"], ke["launches"], aa, track_frames, _ = main_path(
+        device, frames, False, variables, smpl, cfg, cpu_ref)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("strict path left TF32 on")
     print(json.dumps({"phase": "tf32", "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
@@ -2723,7 +2862,7 @@ def main() -> int:
 
     launches, q_yolo = int8_detector_path(device, frames)
     k2_launches += launches
-    _, _, _, int8_est = main_path(device, frames, True, variables, smpl, cfg, cpu_ref,
+    _, _, _, _, int8_est = main_path(device, frames, True, variables, smpl, cfg, cpu_ref,
                                   spin_int8=True)
     k2_launches += full_frame(device, frames, main_bboxes, q_yolo, variables, smpl, cfg, True,
                               quant_backbone=prepare_resnet50(int8_est.quant_params, device))
@@ -2739,7 +2878,7 @@ def main() -> int:
     k3, k1m = window_crop_check(device, frames)
     augment_check(device)
 
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k1m]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k1m, ke]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

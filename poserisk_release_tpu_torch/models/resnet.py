@@ -42,7 +42,8 @@ def conv_height(height: int, k: int, s: int, p: int) -> int:
 
 
 def resnet50_walk(x: torch.Tensor, conv: Callable, rows=None,
-                  gather: Optional[Callable] = None, width: int = 1) -> torch.Tensor:
+                  gather: Optional[Callable] = None, width: int = 1,
+                  epilogue: bool = False) -> torch.Tensor:
     """THE ResNet-50 v1.5 walk over a conv function: NCHW crops (B, 3, S, S)
     -> (B, C) pooled f32 features. The backbones that are not an nn.Module
     run through it: the tensor-parallel shard (parallel/spmd), the folded /
@@ -52,7 +53,14 @@ def resnet50_walk(x: torch.Tensor, conv: Callable, rows=None,
     conv(name, x, stride, padding) -> the named conv's output with its BN
     (or folded bias) applied and no activation; names are the HMR's conv
     names ("conv1", "layer{L}.{i}.conv{1,2,3}", "layer{L}.{i}.downsample")
-    and padding a (rows, columns) pair.
+    and padding a (rows, columns) pair. The walk then adds a bottleneck's
+    identity to its conv3 and applies the ReLUs itself. With epilogue=True
+    the conv does that too: conv(name, x, stride, padding, relu=...,
+    residual=...) -> the output with its bias, then `residual` (the
+    identity, conv3 only; None elsewhere) added, then ReLU where `relu`
+    (the stem, conv1, conv2, conv3; not a downsample): the folded backbone's
+    one epilogue pass a conv (models/resnet_int8.resnet50_forward on a
+    folded f32 backbone).
 
     gather(t): what a conv reads of a block-internal activation (the
     tensor-parallel channel gather; identity by default). width: the
@@ -68,24 +76,32 @@ def resnet50_walk(x: torch.Tensor, conv: Callable, rows=None,
     layer computes none (an empty tensor of 0 rows)."""
     gather = gather or (lambda t: t)
 
-    def run(name, t, height, k, s, p, cout, whole=False, read=None):
+    def run(name, t, height, k, s, p, cout, whole=False, read=None, relu=False,
+            residual=None):
         """(output, output height) of one conv on t (its rank's rows, or
-        the whole crops for the stem); read: gather(t), when known."""
+        the whole crops for the stem), `residual` added and ReLU'd where
+        asked; read: gather(t), when known."""
+        out_height = conv_height(height, k, s, p)
         if rows is None:
             src = t if whole else (read if read is not None else gather(t))
-            return conv(name, src, s, (p, p)), conv_height(height, k, s, p)
-        win = rows.take(t, k, s, p) if whole else rows.exchange(t, height, k, s, p)
-        if win.shape[2] == 0:
-            wo = conv_height(t.shape[3], k, s, p)
-            return win.new_zeros((win.shape[0], cout // width, 0, wo)), \
-                conv_height(height, k, s, p)
-        if not whole:
-            win = read if (win is t and read is not None) else gather(win)
-        return conv(name, win, s, (0, p)), conv_height(height, k, s, p)
+            pad = (p, p)
+        else:
+            win = rows.take(t, k, s, p) if whole else rows.exchange(t, height, k, s, p)
+            if win.shape[2] == 0:
+                wo = conv_height(t.shape[3], k, s, p)
+                return win.new_zeros((win.shape[0], cout // width, 0, wo)), out_height
+            src = win if whole else (read if (win is t and read is not None) else gather(win))
+            pad = (0, p)
+        if epilogue:
+            return conv(name, src, s, pad, relu=relu, residual=residual), out_height
+        out = conv(name, src, s, pad)
+        if residual is not None:
+            out = out + residual
+        # In place on the conv's own output, as nn.ReLU(inplace=True) acts.
+        return (F.relu(out, inplace=True) if relu else out), out_height
 
     height = x.shape[2]
-    x, height = run("conv1", x, height, 7, 2, 3, 64, whole=True)
-    x = F.relu(x, inplace=True)
+    x, height = run("conv1", x, height, 7, 2, 3, 64, whole=True, relu=True)
     if rows is None:
         x = F.max_pool2d(x, 3, 2, padding=1)
     else:
@@ -98,8 +114,7 @@ def resnet50_walk(x: torch.Tensor, conv: Callable, rows=None,
             x = win.new_zeros((*win.shape[:2], 0, conv_height(x.shape[3], 3, 2, 1)))
     def block(x, height, L, i):
         """One bottleneck: (output, output height). Its temporaries die
-        with the call; the ReLUs act in place on the convs' own outputs,
-        as the module's nn.ReLU(inplace=True) does."""
+        with the call."""
         p, planes = f"layer{L}.{i}.", PLANES[L - 1]
         stride = 2 if (L > 1 and i == 0) else 1
         # The block input's gather serves conv1 and, where it reads the
@@ -108,12 +123,11 @@ def resnet50_walk(x: torch.Tensor, conv: Callable, rows=None,
         identity = x
         if i == 0:
             identity, _ = run(p + "downsample", x, height, 1, stride, 0, planes * 4, read=read)
-        out, _ = run(p + "conv1", x, height, 1, 1, 0, planes, read=read)
+        out, _ = run(p + "conv1", x, height, 1, 1, 0, planes, read=read, relu=True)
         del read
-        out, out_height = run(p + "conv2", F.relu(out, inplace=True), height, 3, stride, 1,
-                              planes)
-        out, _ = run(p + "conv3", F.relu(out, inplace=True), out_height, 1, 1, 0, planes * 4)
-        return F.relu(out + identity, inplace=True), out_height
+        out, out_height = run(p + "conv2", out, height, 3, stride, 1, planes, relu=True)
+        return run(p + "conv3", out, out_height, 1, 1, 0, planes * 4, relu=True,
+                   residual=identity)
 
     height = conv_height(height, 3, 2, 1)
     for L, n_blocks in enumerate(LAYERS, start=1):

@@ -3,7 +3,10 @@
 Port of the JAX package's models/resnet_int8.py. The strict SPIN backbone is
 the nn.Module in models/resnet.py; this module re-expresses the same network
 as a function over a flat parameter dict, so BatchNorm folds into the conv
-weights once at load and the convs can run int8 (ops/qconv).
+weights once at load and the convs can run int8 (ops/qconv). A wholly
+folded f32 backbone (no int8 layer) runs each conv bias-free and then one
+epilogue pass (ops/epilogue.conv_epilogue): the strict-f32 HMR on the card
+(pipeline.PoseEstimator), NCHW throughout there.
 
 Pipeline: fold_resnet50_params(hmr_state_dict) -> calibrate_resnet50(folded,
 sample_crops) -> quantize_resnet50(folded, scales) [-> bias_correct_resnet50]
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from poserisk_release_tpu_torch.models.convert import fold_bn_kernel_bias
 from poserisk_release_tpu_torch.models.resnet import resnet50_walk
+from poserisk_release_tpu_torch.ops import epilogue
 from poserisk_release_tpu_torch.ops.qconv import (
     QConv2d,
     act_scale,
@@ -96,6 +100,14 @@ class _FloatConv:
                      padding=self.pad if pad is None else pad)
         return y + self.bias.to(compute_dtype)[None, :, None, None]
 
+    def fused(self, x: torch.Tensor, pad, relu: bool,
+              residual: Optional[torch.Tensor]) -> torch.Tensor:
+        """f32: the conv without its bias (F.conv2d would add it in a kernel
+        of its own), then one in-place epilogue pass: + bias, + residual,
+        ReLU where asked (resnet50_walk's epilogue contract)."""
+        return epilogue.conv_epilogue(F.conv2d(x, self.weight, None, self.stride, pad),
+                                      self.bias, residual, relu)
+
 
 def prepare_resnet50(params: Dict, device) -> Dict[str, object]:
     """A folded or quantized dict -> {conv name: callable(x NCHW, compute
@@ -123,14 +135,32 @@ def resnet50_forward(params: Dict, x: torch.Tensor, compute_dtype=torch.bfloat16
     rows: this rank's crop rows under the spatial axis (models/resnet.
     resnet50_walk)."""
     layers = params if "__prepared__" in params else prepare_resnet50(params, x.device)
+    # A wholly float backbone in f32 (the strict HMR on the card, the
+    # calibration walk) takes one epilogue pass a conv for its bias, the
+    # block's identity and the ReLU; int8 layers and other dtypes keep the
+    # walk's own add and ReLU.
+    fused = compute_dtype == torch.float32 and all(
+        isinstance(layer, _FloatConv) for key, layer in layers.items() if key != "__prepared__")
 
-    def conv(name, t, stride, padding):
+    def conv(name, t, stride, padding, relu=False, residual=None):
         key = name.replace(".", "_", 1) if name.startswith("layer") else name
         if _record is not None:
             _record[key] = t.float()
+        if fused:
+            return layers[key].fused(t, padding, relu, residual)
         return layers[key](t, compute_dtype, padding)
 
-    return resnet50_walk(x.permute(0, 3, 1, 2), conv, rows=rows)  # NHWC -> NCHW view
+    x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels-last in memory
+    if fused:
+        x = x.to(compute_dtype)
+        if x.is_cuda:
+            # The one layout copy: cuDNN's strict-f32 convs are NCHW
+            # kernels, which on channels-last tensors transpose each conv's
+            # input and output, and the epilogue kernel reads NCHW-contiguous
+            # outputs. The CPU keeps the view, so its numbers stay those of
+            # the walk's own add and ReLU, bit for bit.
+            x = x.contiguous()
+    return resnet50_walk(x, conv, rows=rows, epilogue=fused)
 
 
 def calibrate_resnet50(folded: Dict, crops: torch.Tensor,

@@ -16,8 +16,12 @@ plain versions do.
 
 Numerics: the strict (default) path turns TF32 off for cuDNN convolutions
 and matmuls, which default to TF32 on Hopper and would break f32 parity
-with the JAX reference. fast=True runs the ResNet backbone in bfloat16 on
-bf16 crops, with the IEF head and everything after it in float32.
+with the JAX reference. On the card it runs the HMR's backbone with
+BatchNorm folded into the convs, NCHW throughout, each conv followed by
+one hand-written epilogue (runs_folded_chain, models/resnet_int8.
+resnet50_forward, ops/epilogue.conv_epilogue_cuda). fast=True runs the ResNet
+backbone in bfloat16 on bf16 crops, with the IEF head and everything after
+it in float32.
 
 Detector: YOLOv3 (models/detector.YoloDetector) when DETECTOR.weights
 exists, else the full-frame StubDetector.
@@ -162,6 +166,21 @@ def _mesh_axes(cfg: Config, mesh) -> tuple:
     return ()
 
 
+def runs_folded_chain(device: torch.device, backbone_dtype: torch.dtype) -> bool:
+    """Whether a single-device HMR runs its backbone BN-folded, NCHW, one
+    epilogue a conv (models/resnet_int8.resnet50_forward on
+    fold_resnet50_params' f32 dict): strict f32 on a CUDA device. cuDNN's strict-
+    f32 convs are NCHW kernels there, so the channels-last module pays a
+    layout transpose on each side of every conv, and its BatchNorm, ReLUs
+    and residual adds are passes of their own; the chain is the GEMM and
+    one epilogue a conv. bf16 (fast) keeps the channels-last module: cuDNN's
+    bf16 tensor-core kernels are NHWC-native, so NCHW would add the
+    transposes. The CPU keeps the module: folding reorders the f32 sums,
+    and the CPU checks of debug/pose_log.csv against the JAX package are
+    byte for byte."""
+    return torch.device(device).type == "cuda" and backbone_dtype == torch.float32
+
+
 class PoseEstimator:
     """Crops -> (euler deg, joint_cam mm, axis-angle), chunked, on one
     device or one rank of a mesh."""
@@ -294,6 +313,12 @@ class PoseEstimator:
             if self.fast:
                 model.cast_backbone(torch.bfloat16)
             self.model = model.to(self.device, memory_format=torch.channels_last)
+        # The one place that picks the backbone every pose core runs. The
+        # folded chain needs the whole module (not tp's shard or pp's stage)
+        # and whole crop rows (sp's SpatialHMR walks the module); spin_int8
+        # folds and calibrates its own backbone on the first crops.
+        self._folds = (spin_forward is None and not self._sp and not spin_int8
+                       and runs_folded_chain(self.device, self.model.conv1.weight.dtype))
         self._spin_forward = spin_forward
         self._core_hooks = {"expert_joints": expert_joints, "mesh": mesh}
         self._rows = None
@@ -301,7 +326,7 @@ class PoseEstimator:
             self._rows = pmesh.RowShards(pmesh.axis_group(mesh, spmd.SPATIAL_AXIS),
                                          pmesh.axis_size(mesh, spmd.SPATIAL_AXIS),
                                          pmesh.axis_index(mesh, spmd.SPATIAL_AXIS))
-        self._build_cores()
+        self._pose_core = self._step_core = None  # built on first use (_cores)
         self._ring = None  # the chunks' staging, made on first use
 
     def _build_cores(self) -> None:
@@ -311,6 +336,18 @@ class PoseEstimator:
         ``spatial`` (JAX constrains the crops in those steps only)."""
         from poserisk_release_tpu_torch.parallel.spmd import SpatialHMR
 
+        if self._folds and self._quant_backbone is None:
+            # The strict-f32 backbone on the card: BatchNorm folded into
+            # each conv once (the JAX package's fold arithmetic), OIHW
+            # weights on the device, the module's own IEF head
+            # (make_pose_core -> models/spin.hmr_forward_quant).
+            from poserisk_release_tpu_torch.models.resnet_int8 import (
+                fold_resnet50_params,
+                prepare_resnet50,
+            )
+
+            self._quant_backbone = prepare_resnet50(
+                fold_resnet50_params(self.model.state_dict()), self.device)
         hooks = dict(self._core_hooks, pose_stride=self._pose_stride,
                      quant_backbone=self._quant_backbone)
         self._pose_core = make_pose_core(self.parents, spin_forward=self._spin_forward, **hooks)
@@ -320,10 +357,19 @@ class PoseEstimator:
                 self.parents, spin_forward=SpatialHMR(self.model, self._rows,
                                                       self._quant_backbone), **hooks)
 
+    def _cores(self) -> tuple:
+        """(_pose_core, _step_core), built on first use, so an estimator
+        that only lends its module (train/step.TrainState) folds nothing."""
+        if self._pose_core is None:
+            self._build_cores()
+        return self._pose_core, self._step_core
+
     @property
     def param_bytes(self) -> int:
         """Bytes of the SPIN weights this rank holds on its device (the
-        whole HMR, its tp shard, or its pp stage)."""
+        whole HMR, its tp shard, or its pp stage). A folded or quantized
+        copy of the backbone beside them (the strict card's, spin_int8's) is
+        not counted."""
         if isinstance(self.model, torch.nn.Module):
             return sum(t.numel() * t.element_size() for t in self.model.state_dict().values())
         return self.model.nbytes()
@@ -442,7 +488,7 @@ class PoseEstimator:
         data rows as replicas, as the JAX server does. Under a mesh without
         row_step_has_collectives it returns this data rank's rows and
         leaves their gather to the caller."""
-        core = self._pose_core
+        core = self._cores()[0]
         if self.mesh is not None and not self.row_step_has_collectives:
             core = make_pose_core(self.parents, quant_backbone=self._quant_backbone)
 
@@ -452,7 +498,7 @@ class PoseEstimator:
         return step
 
     def _pose_step(self, crops: torch.Tensor):
-        return self._step_core(self.model, self.smpl_params, crops)
+        return self._cores()[1](self.model, self.smpl_params, crops)
 
     def _crop(self, frames_u8: torch.Tensor, bboxes: torch.Tensor) -> torch.Tensor:
         """The pose step's crops (K1 on the card). A later pp stage crops
@@ -466,7 +512,7 @@ class PoseEstimator:
     def _pose_step_from_frames(self, frames_u8: torch.Tensor, bboxes: torch.Tensor):
         # Crop fused into the pose step: the host uploads raw uint8 frames
         # once and downloads only angles/joints.
-        return self._step_core(self.model, self.smpl_params, self._crop(frames_u8, bboxes))
+        return self._cores()[1](self.model, self.smpl_params, self._crop(frames_u8, bboxes))
 
     def run(self, crops: np.ndarray, chunk: int = 0):
         """crops: (F, 224, 224, 3) float32 [0,1]. Chunked + padded execution;

@@ -152,9 +152,10 @@ class _BucketGraph:
     copies a batch's real host rows (a pinned slot's, on the dispatcher's
     path) into the inputs, edge-pads the rest on the device, replays, and
     returns host copies of the outputs. A replay launches every kernel the
-    capture recorded, so it adds the crop kernel's recorded launches to
-    ops/resample.crop_batch_cuda.launches (the wrapper counts a recording
-    apart, in `.captured`)."""
+    capture recorded, so it adds the crop kernel's and the conv epilogue's
+    recorded launches to ops/resample.crop_batch_cuda.launches and
+    ops/epilogue.conv_epilogue_cuda.launches (each wrapper counts a
+    recording apart, in `.captured`)."""
 
     def __init__(self, step, bucket: int, frame_hw: Tuple[int, int], device: torch.device,
                  pool, stream: torch.cuda.Stream):
@@ -165,9 +166,10 @@ class _BucketGraph:
         self.boxes = torch.zeros((bucket, 4), dtype=torch.float32, device=device)
         self.outputs: Tuple[torch.Tensor, ...] = ()
         self.host_out: Tuple[torch.Tensor, ...] = ()
-        self.k1_per_replay = 0
+        self.k1_per_replay = self.epilogue_per_replay = 0
 
     def capture(self) -> None:
+        from poserisk_release_tpu_torch.ops.epilogue import conv_epilogue_cuda
         from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
 
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -176,7 +178,7 @@ class _BucketGraph:
                 self.step(self.frames, self.boxes)
         self.stream.synchronize()
         graph = torch.cuda.CUDAGraph()
-        recorded = crop_batch_cuda.captured
+        recorded = crop_batch_cuda.captured, conv_epilogue_cuda.captured
         try:
             with torch.inference_mode(), torch.cuda.graph(
                     graph, pool=self.pool, stream=self.stream,
@@ -185,13 +187,15 @@ class _BucketGraph:
         except Exception as exc:
             raise RuntimeError(
                 f"CUDA graph capture of serving bucket {self.bucket} failed") from exc
-        self.k1_per_replay = crop_batch_cuda.captured - recorded
+        self.k1_per_replay = crop_batch_cuda.captured - recorded[0]
+        self.epilogue_per_replay = conv_epilogue_cuda.captured - recorded[1]
         self.outputs = tuple(outputs)
         self.host_out = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
                               for o in self.outputs)
         self.graph = graph
 
     def run(self, host_frames: torch.Tensor, host_boxes: torch.Tensor):
+        from poserisk_release_tpu_torch.ops.epilogue import conv_epilogue_cuda
         from poserisk_release_tpu_torch.ops.resample import crop_batch_cuda
 
         if self.graph is None:
@@ -204,6 +208,7 @@ class _BucketGraph:
                 host.copy_(out, non_blocking=True)
         self.stream.synchronize()
         crop_batch_cuda.launches += self.k1_per_replay
+        conv_epilogue_cuda.launches += self.epilogue_per_replay
         return tuple(h.numpy().copy() for h in self.host_out)
 
     def release(self) -> None:
